@@ -6,16 +6,36 @@
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: a CUDA card must be present; prints the nvidia-smi name and
      power limit and the CUDA version;
-  2. build: the chop kernel (ops/csrc/chop.cu, nvcc) and native/ (make);
+  2. build: the chop kernel (ops/csrc/chop.cu) and the radix sort
+     (ops/csrc/radix_sort.cu), one nvcc each, and native/ (make), all
+     started together;
   3. kernel vs plain on the card: chop against chop_plain on the same CUDA
      tensors, both modes, exact equality (k 16/17/31, ragged reads, reads
      shorter than k, and the main path's 100 000 x 150 batch at k = 31,
      timed with CUDA events);
   4. the slice at E. coli scale: a 4.6 Mb simulated genome, 150 bp pairs at
-     40x, through cli.main: ``kmerfreq -k 17 -m 1`` and ``debruijn_contig
-     -k 31 -i 0.02 -M 125``, with the chop's launch count read around them;
-  5. oracle: the GPU node table at k = 31 and the GPU k = 17 counts against
-     the shared native C++ ingest on the same files.
+     40x, written as two FASTQ files;
+  5. sort vs plain on the card: the radix sort against sort_plain on the
+     same CUDA tensors, keys and index exactly equal: n = 0, 1, 1000, all
+     keys equal, keys with the sentinel, key_bits 34/35/62/63, and the main
+     path's shapes, timed with CUDA events in turns plain/kernel/kernel/
+     plain: kmerfreq's batch (200 000 x 134 windows at k = 17, keys only),
+     ingest's batch (100 000 x 120 at k = 31, with index) and an 8-part
+     merge of the library's first 8 ingest batches (with index);
+  6. the three stage runs through cli.main: ``kmerfreq -k 17 -m 1``,
+     ``debruijn_contig -k 31 -i 0.02 -M 125`` and the same with
+     ``--readout doubling``; each kernel's launch count is set to 0 just
+     before each run and read just after, and must be > 0 for both kernels
+     in every run; wall time and peak device memory per run;
+  7. oracles: the doubling run's .seq and .small record multisets,
+     .contig.kmer.freq bytes and tip/lowedge/bubble removal counts equal the
+     exact run's; the GPU node table at k = 31 and the GPU k = 17 counts
+     equal the shared native C++ ingest on the same files;
+  8. the doubling stage step by step on that node table (graph set-up,
+     links, tips, low edges, bubbles, readout), with the chain resolution
+     timed on the card (_succ_resolve) against the native host twins
+     (succ_build + resolve_chains_host), their outputs compared, and the
+     host memory of collect_heads' scratch.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -24,11 +44,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -89,6 +111,16 @@ def _cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _turns(name: str, kern, plain) -> tuple[float, float]:
+    """CUDA-event ms of kern and plain in turns plain/kernel/kernel/plain;
+    returns the means (kernel, plain)."""
+    p1, k1, k2, p2 = (_cuda_ms(plain), _cuda_ms(kern), _cuda_ms(kern),
+                      _cuda_ms(plain))
+    _log(f"{name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+         f"{p2:.4f} ms")
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def phase_kernel(chop) -> dict:
     rng = np.random.default_rng(0)
     err = 0
@@ -111,19 +143,10 @@ def phase_kernel(chop) -> dict:
         err = max(err, _max_abs_err(
             got, chop.chop_plain(codes, lengths, k, edges)))
         del got
-
-        def kern():
-            return chop.chop(codes, lengths, k, edges)
-
-        def plain():
-            return chop.chop_plain(codes, lengths, k, edges)
-
-        # in turns: plain, kernel, kernel, plain
-        p1, k1, k2, p2 = (_cuda_ms(plain), _cuda_ms(kern), _cuda_ms(kern),
-                          _cuda_ms(plain))
-        times[edges] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        _log(f"chop {N}x{L} k={k} edges={edges}: kernel {k1:.4f} / "
-             f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+        times[edges] = _turns(
+            f"chop {N}x{L} k={k} edges={edges}",
+            lambda: chop.chop(codes, lengths, k, edges),
+            lambda: chop.chop_plain(codes, lengths, k, edges))
     if err != 0:
         raise AssertionError(f"chop kernel differs from chop_plain on the "
                              f"card: max abs err {err}")
@@ -159,6 +182,96 @@ def make_library(workdir: str) -> tuple[str, list[str], int]:
     return lib, files, 2 * len(r1)
 
 
+# ---------------------------------------------------------------- phase 5
+def _sort_check(srt, keys: torch.Tensor, bits: int, index: bool,
+                what: str) -> int:
+    got = srt.sort(keys, bits, index)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, srt.sort_plain(keys, bits, index))
+    if err != 0:
+        raise AssertionError(f"radix sort differs from sort_plain on the "
+                             f"card ({what}): max abs err {err}")
+    return err
+
+
+def phase_sort(srt, chop, files: list[str]) -> dict:
+    from dbg_assembly_tpu_torch.contig import graph
+    from dbg_assembly_tpu_torch.io import fastq
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def draw(n, bits, pool=None):
+        hi = (1 << bits) - 1 if bits == 63 else 1 << bits
+        if pool is None:
+            return torch.randint(0, hi, (n,), generator=gen, device="cuda")
+        vals = torch.randint(0, hi, (pool,), generator=gen, device="cuda")
+        return vals[torch.randint(0, pool, (n,), generator=gen,
+                                  device="cuda")]
+
+    sent = torch.iinfo(torch.int64).max
+    cases = [("n=0", torch.empty(0, dtype=torch.int64, device="cuda"), 35),
+             ("n=1", draw(1, 34), 35), ("n=1000", draw(1000, 34), 35),
+             ("all keys equal", torch.full((100_000,), 12345,
+                                           dtype=torch.int64,
+                                           device="cuda"), 35)]
+    for k in (17, 31):
+        keys = draw(200_003, 2 * k, pool=50_000)
+        keys[torch.randint(0, len(keys), (20_000,), generator=gen,
+                           device="cuda")] = sent
+        cases.append((f"sentinel, k={k}", keys, 2 * k + 1))
+    for bits in (34, 35, 62, 63):
+        cases.append((f"key_bits={bits}", draw(1_000_003, bits,
+                                               pool=300_000), bits))
+    err = 0
+    for what, keys, bits in cases:
+        for index in (False, True):
+            err = max(err, _sort_check(srt, keys, bits, index, what))
+    _log(f"radix sort == sort_plain on the card: n 0/1/1000, all equal, "
+         f"sentinel at k 17/31, key_bits 34/35/62/63, keys and index")
+
+    rng = np.random.default_rng(1)
+    times = {}
+    # kmerfreq's batch: 200 000 reads of 150 bases at k = 17, keys only
+    codes = torch.from_numpy(rng.integers(0, 4, (200_000, READ_LEN))
+                             .astype(np.uint8)).cuda()
+    lengths = torch.full((200_000,), READ_LEN, dtype=torch.int32,
+                         device="cuda")
+    keys = chop.chop(codes, lengths, 17)[0].reshape(-1)
+    shapes = [("count", keys, 35, False)]
+    # ingest's batch: 100 000 x 150 at k = 31, with index
+    keys = chop.chop(codes[:100_000], lengths[:100_000], 31)[0].reshape(-1)
+    shapes.append(("ingest", keys, 63, True))
+    del codes, lengths
+    # an 8-part merge: the uniques of the library's first 8 ingest batches
+    c = np.concatenate([fastq.read_batch(f).codes for f in files])
+    parts = []
+    for b in range(8):
+        cb = torch.from_numpy(c[b * 100_000:(b + 1) * 100_000]).cuda()
+        lb = torch.full((len(cb),), cb.shape[1], dtype=torch.int32,
+                        device="cuda")
+        parts.append(graph._aggregate_batch(cb, lb, 31, 0)[0])
+    del c
+    shapes.append(("merge", torch.cat(parts), 62, True))
+    del parts
+    for name, keys, bits, index in shapes:
+        err = max(err, _sort_check(srt, keys, bits, index, name))
+        times[name] = _turns(
+            f"sort {name}: {keys.shape[0]} keys, key_bits {bits}, "
+            f"index {index}",
+            lambda: srt.sort(keys, bits, index),
+            lambda: srt.sort_plain(keys, bits, index))
+        times[name + "_n"] = keys.shape[0]
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err,
+            "ms": times["count"][0], "plain_ms": times["count"][1],
+            "n": times["count_n"],
+            "ms_ingest": times["ingest"][0],
+            "plain_ms_ingest": times["ingest"][1],
+            "n_ingest": times["ingest_n"],
+            "ms_merge": times["merge"][0],
+            "plain_ms_merge": times["merge"][1],
+            "n_merge": times["merge_n"]}
+
+
 def _fasta_lengths(path: str) -> np.ndarray:
     lens, cur = [], None
     with open(path, "rb") as f:
@@ -192,33 +305,120 @@ def _phase_wall(name: str, fn):
     return out
 
 
-def phase_slice(workdir: str, lib: str, chop) -> int:
+# ---------------------------------------------------------------- phase 6
+def phase_slice(workdir: str, lib: str, kernels: dict) -> tuple:
+    """The three stage runs through cli.main; returns (launches summed
+    over the runs per kernel, exact prefix, doubling prefix)."""
     from dbg_assembly_tpu_torch import cli
     prefix = os.path.join(workdir, "asm")
-    chop.launches = 0
-    _phase_wall("kmerfreq -k 17 -m 1", lambda: cli.main(
-        ["kmerfreq", "-k", "17", "-m", "1", lib, "--device", "cuda"]))
-    with open(os.path.join(workdir, "contig.log"), "w") as logf, \
-            contextlib.redirect_stderr(logf):
-        _phase_wall("debruijn_contig -k 31 -i 0.02 -M 125", lambda: cli.main(
-            ["debruijn_contig", "-k", "31", "-i", "0.02", "-M", "125",
-             "-o", prefix, lib, "--device", "cuda"]))
-    launches = chop.launches
-    _log(f"chop launches in the main path: {launches}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the chop kernel")
-    lens = _fasta_lengths(prefix + ".contig.seq.fa")
-    total = int(lens.sum())
-    _log(f"contigs: {len(lens)}, total length {total}, N50 {_n50(lens)} "
-         f"(genome {GENOME_LEN})")
-    if not (len(lens) > 0 and 0.5 * GENOME_LEN <= total <= 1.2 * GENOME_LEN
-            and _n50(lens) >= 500):
-        raise AssertionError("contig set out of the expected range")
-    return launches
+    dprefix = os.path.join(workdir, "asm_doubling")
+    contig = ["debruijn_contig", "-k", "31", "-i", "0.02", "-M", "125"]
+    runs = [("kmerfreq -k 17 -m 1", ["kmerfreq", "-k", "17", "-m", "1"],
+             None),
+            ("debruijn_contig -k 31 -i 0.02 -M 125", contig + ["-o", prefix],
+             "contig.log"),
+            ("debruijn_contig --readout doubling -k 31 -i 0.02 -M 125",
+             contig + ["--readout", "doubling", "-o", dprefix],
+             "contig_doubling.log")]
+    totals = dict.fromkeys(kernels, 0)
+    for title, argv, logname in runs:
+        argv = argv + [lib, "--device", "cuda"]
+        for mod in kernels.values():
+            mod.launches = 0
+        with contextlib.ExitStack() as stack:
+            if logname:
+                logf = stack.enter_context(
+                    open(os.path.join(workdir, logname), "w"))
+                stack.enter_context(contextlib.redirect_stderr(logf))
+            _phase_wall(title, lambda: cli.main(argv))
+        counts = {name: mod.launches for name, mod in kernels.items()}
+        _log(f"{title}: kernel launches {counts}")
+        for name, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{title} never launched the {name} "
+                                     "kernel")
+            totals[name] += n
+    for pre in (prefix, dprefix):
+        lens = _fasta_lengths(pre + ".contig.seq.fa")
+        total = int(lens.sum())
+        _log(f"{os.path.basename(pre)} contigs: {len(lens)}, total length "
+             f"{total}, N50 {_n50(lens)} (genome {GENOME_LEN})")
+        if not (len(lens) > 0 and 0.5 * GENOME_LEN <= total
+                <= 1.2 * GENOME_LEN and _n50(lens) >= 500):
+            raise AssertionError("contig set out of the expected range")
+    return totals, prefix, dprefix
 
 
-# ---------------------------------------------------------------- phase 5
-def phase_oracle(files: list[str], lib: str) -> None:
+# ---------------------------------------------------------------- phase 7
+def _depth_records(path: str) -> list[bytes]:
+    """Depth files are >name\\n<raw bytes>\\n records (the bytes never hold
+    a newline)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    out, i = [], 0
+    while i < len(data):
+        j = data.index(b"\n", i)
+        e = data.index(b"\n", j + 1)
+        out.append(data[j + 1:e])
+        i = e + 1
+    return out
+
+
+def _record_multiset(prefix: str, kind: str) -> list:
+    """(header after the id, sequence, depth bytes) of every record: the
+    doubling readout writes each record's bytes as the exact one does;
+    only the file order of length ties may differ."""
+    headers, seqs = [], []
+    with open(prefix + f".contig.{kind}.fa", "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                headers.append(line.split(b"\t", 1)[1])
+            else:
+                seqs.append(line.strip())
+    deps = _depth_records(prefix + f".contig.{kind}.depth")
+    if not len(headers) == len(seqs) == len(deps):
+        raise AssertionError(f"{prefix}.contig.{kind}: ragged records")
+    return sorted(zip(headers, seqs, deps))
+
+
+def _n_records(path: str) -> int:
+    with open(path, "rb") as f:
+        return sum(line.startswith(b">") for line in f)
+
+
+def _removals(log_path: str) -> dict:
+    with open(log_path) as f:
+        return dict(re.findall(r"remove total (\w+ (?:number|length)):"
+                               r"\s*(\d+)", f.read()))
+
+
+def phase_doubling_oracle(workdir: str, prefix: str, dprefix: str) -> None:
+    for kind in ("seq", "small"):
+        a, b = _record_multiset(prefix, kind), _record_multiset(dprefix,
+                                                                kind)
+        if a != b:
+            raise AssertionError(f"doubling .{kind} records != exact")
+    with open(prefix + ".contig.kmer.freq", "rb") as f1, \
+            open(dprefix + ".contig.kmer.freq", "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("doubling .contig.kmer.freq != exact")
+    ex = _removals(os.path.join(workdir, "contig.log"))
+    db = _removals(os.path.join(workdir, "contig_doubling.log"))
+    if len(ex) != 6 or ex != db:
+        raise AssertionError(f"pruning: exact {ex} != doubling {db}")
+    for suf in ("tip", "lowedge", "bubble"):
+        n = [_n_records(pre + f".contig.{suf}.fa") for pre in (prefix,
+                                                               dprefix)]
+        if n[0] != n[1]:
+            raise AssertionError(f"{suf} records: exact {n[0]} != "
+                                 f"doubling {n[1]}")
+    _log(f"doubling readout == exact readout: .seq/.small records "
+         f"({len(_record_multiset(prefix, 'seq'))} / "
+         f"{len(_record_multiset(prefix, 'small'))}), .kmer.freq bytes, "
+         f"removals {ex}")
+
+
+def phase_oracle(files: list[str], lib: str):
     from dbg_assembly_tpu_torch import native
     from dbg_assembly_tpu_torch.contig import pipeline
     from dbg_assembly_tpu_torch.io import fastq
@@ -266,6 +466,102 @@ def phase_oracle(files: list[str], lib: str) -> None:
             or f"#Kmer species number: {len(nu)}\n" not in stat):
         raise AssertionError("kmerfreq .stat disagrees with native counts")
     _log(f"GPU k=17 counts == native ingest: {len(nu)} species, {nt} k-mers")
+    return gpu
+
+
+# ---------------------------------------------------------------- phase 8
+def _rss() -> int:
+    """Resident host memory of this process, bytes."""
+    with open("/proc/self/status") as f:
+        kb = re.search(r"VmRSS:\s*(\d+) kB", f.read()).group(1)
+    return int(kb) * 1024
+
+
+def phase_doubling_steps(table, workdir: str) -> None:
+    """The doubling stage of the smoke's run, step by step on its node
+    table, with chain resolution on the card against the host twins."""
+    from dbg_assembly_tpu_torch import native
+    from dbg_assembly_tpu_torch.contig import pointer_doubling as pd
+    from dbg_assembly_tpu_torch.contig.refassemble import AssembleParams
+    prefix = os.path.join(workdir, "steps")
+    params = AssembleParams(ksize=31, init_hash_size=0.02,
+                            contig_len_cutoff=125)
+    steps = []
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps.append((name, time.perf_counter() - t))
+        return out
+
+    g = step("graph set-up", lambda: pd._Graph(table, params, "cuda"))
+    step("links", g.calc_links)
+    step("tips", lambda: pd.remove_tips(g, prefix + ".contig.tip.fa"))
+    step("low edges", lambda: pd.remove_lowedges(
+        g, prefix + ".contig.lowedge.fa"))
+    step("bubbles", lambda: pd.remove_bubbles(
+        g, prefix + ".contig.bubble.fa"))
+    M = g.M
+    alive = (~g.deleted[:M]) & g.linear[:M]
+
+    # on the card: the program alone (3 runs), and with its copies
+    dev = [torch.from_numpy(a).cuda() for a in (
+        g.kmers.view(np.int64), g.l_base[:M], g.r_base[:M], alive)]
+    torch.cuda.reset_peak_memory_stats()
+    prog = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pd._succ_resolve(*dev, 31)
+        torch.cuda.synchronize()
+        prog.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    del dev
+    t = time.perf_counter()
+    succ, e, dist, cyc = pd.resolve_on_device(g, alive)
+    t_copies = time.perf_counter() - t
+    # the host twins on the same graph
+    t = time.perf_counter()
+    succ_n = native.succ_build(g.kmers, g.l_base[:M], g.r_base[:M],
+                               alive.astype(np.uint8), 31)
+    t_sb = time.perf_counter() - t
+    t = time.perf_counter()
+    e_n, d_n, c_n = native.resolve_chains_host(succ_n)
+    t_rc = time.perf_counter() - t
+    ok = ~c_n
+    if not (np.array_equal(succ, succ_n) and np.array_equal(cyc, c_n)
+            and np.array_equal(e[ok], e_n[ok])
+            and np.array_equal(dist[ok], d_n[ok])):
+        raise AssertionError("device chain resolution != native twins")
+    _log(f"chain resolution over {2 * M} states ({int(alive.sum())} alive "
+         f"nodes, {int(cyc.sum())} cyclic states): card _succ_resolve "
+         f"{', '.join(f'{x:.4f}' for x in prog)} s (peak device memory "
+         f"{peak} B), with its copies {t_copies:.4f} s; native succ_build "
+         f"{t_sb:.4f} s + resolve_chains_host {t_rc:.4f} s = "
+         f"{t_sb + t_rc:.4f} s; outputs equal")
+
+    n = len(succ)
+    rss = _rss()
+    heads, fb = native.collect_heads(alive.astype(np.uint8), succ,
+                                     cyc.astype(np.uint8))
+    _log(f"collect_heads over {n} states: scratch allocated "
+         f"{8 * n + 8 * (n // 2 + 1)} B, filled {8 * (len(heads) + len(fb))}"
+         f" B ({len(heads)} heads, {len(fb)} fallback nodes), resident "
+         f"growth {_rss() - rss} B")
+    del heads, fb
+
+    step("readout", lambda: pd.read_out_contigs(g, prefix))
+    _log("doubling stage by step (s): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in steps)
+        + f"; total {sum(sec for _, sec in steps):.3f}")
+
+
+def _timed(fn, *args) -> float:
+    t = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t
 
 
 def main() -> int:
@@ -276,6 +572,7 @@ def main() -> int:
     try:
         from dbg_assembly_tpu_torch import native
         from dbg_assembly_tpu_torch.ops import build, chop
+        from dbg_assembly_tpu_torch.ops import sort as srt
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -285,13 +582,14 @@ def main() -> int:
     _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)}")
 
-    t = time.perf_counter()
-    build.build("chop")
-    t_nvcc = time.perf_counter() - t
-    t = time.perf_counter()
-    native.build()
-    _log(f"build: chop.cu (nvcc) {t_nvcc:.2f} s, native/ (make) "
-         f"{time.perf_counter() - t:.2f} s")
+    # one nvcc per kernel source and make for native/, all at once
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        jobs = {"chop.cu (nvcc)": ex.submit(_timed, build.build, "chop"),
+                "radix_sort.cu (nvcc)": ex.submit(_timed, build.build,
+                                                  "radix_sort"),
+                "native/ (make)": ex.submit(_timed, native.build)}
+        _log("build: " + ", ".join(f"{name} {fut.result():.2f} s"
+                                   for name, fut in jobs.items()))
 
     kern = phase_kernel(chop)
 
@@ -300,15 +598,24 @@ def main() -> int:
         lib, files, n_reads = make_library(workdir)
         _log(f"library: {n_reads} reads of {READ_LEN} bp, genome "
              f"{GENOME_LEN}, {DEPTH}x, {time.perf_counter() - t:.1f} s")
-        launches = phase_slice(workdir, lib, chop)
-        phase_oracle(files, lib)
+        sort_rec = phase_sort(srt, chop, files)
+        launches, prefix, dprefix = phase_slice(
+            workdir, lib, {"chop": chop, "radix_sort": srt})
+        phase_doubling_oracle(workdir, prefix, dprefix)
+        table = phase_oracle(files, lib)
+        phase_doubling_steps(table, workdir)
 
-    record = {"name": "chop", "route": "cuda",
-              "source": "dbg_assembly_tpu_torch/ops/csrc/chop.cu",
-              "replaces": "dbg_assembly_tpu/ops/pallas_chop.py:81",
-              "launches": launches, **kern}
+    records = [
+        {"name": "chop", "route": "cuda",
+         "source": "dbg_assembly_tpu_torch/ops/csrc/chop.cu",
+         "replaces": "dbg_assembly_tpu/ops/pallas_chop.py:81",
+         "launches": launches["chop"], **kern},
+        {"name": "radix_sort", "route": "cuda",
+         "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
+         "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
+         "launches": launches["radix_sort"], **sort_rec}]
     _log(smi)
-    _log(json.dumps({"kernels": [record]}))
+    _log(json.dumps({"kernels": records}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

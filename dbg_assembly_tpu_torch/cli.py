@@ -2,6 +2,7 @@
 
     python -m dbg_assembly_tpu_torch kmerfreq -k 17 -m 1 reads.lib
     python -m dbg_assembly_tpu_torch debruijn_contig -k 31 -o prefix reads.lib
+    python -m dbg_assembly_tpu_torch debruijn_contig --readout doubling ...
 
 Flag letters match dbg_assembly_tpu's cli (kmerfreq as the workflow runs it,
 test/01.clean_correct/work.sh:31; debruijn_contig as DBG_contig/main.cpp:
@@ -66,8 +67,9 @@ def _debruijn_contig(argv):
     ap.add_argument("-M", type=int, default=125)
     ap.add_argument("--readout", choices=("exact", "doubling"),
                     default="exact",
-                    help="contig extraction engine; only 'exact' (the "
-                    "byte-exact serial replay) is ported so far")
+                    help="contig extraction engine: 'exact' (the "
+                    "byte-exact serial replay) or 'doubling' (bulk pruning "
+                    "+ pointer-doubling chains on --device)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="distributed contig stage over N devices (not "
                     "ported yet)")

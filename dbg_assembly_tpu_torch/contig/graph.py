@@ -7,7 +7,7 @@ DBGgraph.cpp:126-213).  Here, per batch on the device:
   1. the chop kernel in edge mode gives each window its canonical k-mer and
      its strand-adjusted left/right neighbour codes (4 at a read edge,
      DBGgraph.cpp:76-89);
-  2. a stable sort by k-mer;
+  2. a stable sort by k-mer (ops.sort, with the permutation);
   3. segment sums of the neighbour codes into 2x4 counters (clipped at 255
      per batch), run lengths, and the run's smallest stream index (first
      occurrence order, which the readout's hash-layout emulation needs).
@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.chop import SENTINEL, chop
+from ..ops import sort as radix
+from ..ops.chop import chop
 
 
 def _chop_with_edges(codes: torch.Tensor, lengths: torch.Tensor,
@@ -49,7 +50,9 @@ def _aggregate_batch(codes: torch.Tensor, lengths: torch.Tensor,
     kmers, left, right = _chop_with_edges(codes, lengths, ksize)
     P = kmers.shape[1]
     n_valid = int((lengths.to(torch.int64) - ksize + 1).clamp(0, P).sum())
-    sk, order = torch.sort(kmers.reshape(-1), stable=True)
+    # 2k + 1 bits: the sentinel's low bits order it after every k-mer
+    sk, order = radix.sort(kmers.reshape(-1), 2 * ksize + 1,
+                           return_index=True)
     sk, order = sk[:n_valid], order[:n_valid]
     first = torch.ones(n_valid, dtype=torch.bool, device=sk.device)
     first[1:] = sk[1:] != sk[:-1]
@@ -109,11 +112,11 @@ class NodeTable:
                 self.counts, self.total_kmers, self.total_reads)
 
 
-def _merge_parts(parts):
+def _merge_parts(parts, ksize: int):
     """Merge per-batch node records into one, on their device: counters
     and counts add, first_idx takes the minimum."""
     ks = torch.cat([p[0] for p in parts])
-    ks, order = torch.sort(ks, stable=True)
+    ks, order = radix.sort(ks, 2 * ksize, return_index=True)
     first = torch.ones(ks.shape[0], dtype=torch.bool, device=ks.device)
     first[1:] = ks[1:] != ks[:-1]
     starts = torch.nonzero(first).squeeze(1)
@@ -197,7 +200,7 @@ class GraphBuilder:
             self.total_kmers += n_valid
             self.total_reads += len(cb)
             if len(self.parts) >= 8:
-                self.parts = _merge_parts(self.parts)
+                self.parts = _merge_parts(self.parts, self.ksize)
         self.read_seq += len(codes)
 
     def finalize(self) -> NodeTable:
@@ -206,7 +209,7 @@ class GraphBuilder:
                              np.zeros((0, 4), np.int32), np.zeros(0, np.int64),
                              0, self.total_reads,
                              counts=np.zeros(0, np.int32))
-        self.parts = _merge_parts(self.parts)
+        self.parts = _merge_parts(self.parts, self.ksize)
         u, l_, r, f, c = self.parts[0]
         self.parts = []
         # saturation applies at the end of the merge chain: min(total, 255)

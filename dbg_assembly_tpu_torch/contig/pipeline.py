@@ -1,9 +1,13 @@
-"""debruijn_contig stage: graph build on the device + order-exact readout.
+"""debruijn_contig stage: graph build on the device + contig readout.
 
-Counterpart of dbg_assembly_tpu/contig/pipeline.py (exact readout).  CLI
+Counterpart of dbg_assembly_tpu/contig/pipeline.py (single device).  CLI
 parity with DBG_contig/main.cpp:162-212; writes the full artifact set:
 .contig.seq.fa/.seq.depth, .small.*, .tip.fa, .lowedge.fa, .bubble.fa,
-.kmer.freq.
+.kmer.freq.  Two readouts: "exact" replays the reference serially in
+native/assemble_engine.cpp (byte-exact files); "doubling" prunes in bulk
+and resolves chains by pointer doubling on the device
+(contig/pointer_doubling.py; the same records, length ties may be ordered
+differently).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import numpy as np
 
 from ..io import fastq
 from .graph import GraphBuilder
+from .pointer_doubling import assemble_doubling
 from .refassemble import (AssembleParams, RefAssembler, _cap,
                           compute_hash_schedule, initial_hash_size)
 from .runlog import ContigRunLog, count_end_marks
@@ -63,8 +68,11 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
         readout: str = "exact", log_stream=None, log_threads: int = 10,
         log_buffer: int = 10_000, log_doublings: int = 10,
         mesh_devices: int = 0, device="cuda"):
-    """Build the graph of every file in the .lib list on ``device`` and
-    replay the reference's pruning and readout (byte-exact files).
+    """Build the graph of every file in the .lib list on ``device``, prune
+    it and read the contigs out.  readout="exact" replays the reference
+    (byte-exact files); readout="doubling" runs the bulk pruning and the
+    pointer-doubling readout, its chains resolved on ``device``
+    (record-exact; file order may differ on length ties).
     log_stream: emit the reference-parity run log there (its heartbeat
     cadence follows log_buffer = -b, log_threads = -t).
 
@@ -74,10 +82,9 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
     stops ingesting (DBGgraph.cpp:337-351).  Both are emulated: a schedule
     from first-occurrence read ordinals, a re-ingest of exactly the
     reference's read subset on degrade, and the epoch-aware native layout."""
-    if readout != "exact":
-        raise NotImplementedError(
-            f"readout={readout!r} is not ported yet (ROADMAP Queue 1 item 6, "
-            "doubling readout); use readout='exact'")
+    if readout not in ("exact", "doubling"):
+        raise ValueError(f"readout must be 'exact' or 'doubling', not "
+                         f"{readout!r}")
     if mesh_devices:
         raise NotImplementedError(
             "the distributed contig stage is not ported yet (ROADMAP Queue 1 "
@@ -121,20 +128,29 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
             first_read = gb.stream_to_read(table.first_idx[normal])
             schedule = compute_hash_schedule(first_read, gb.file_starts,
                                              gb.read_seq, params)
-        # per-epoch occurrence counts for the count_conflict parity: one
-        # truncated recount per enlargement boundary
-        epoch_occ = [
-            _occurrences_before(files, fmt, ksize, max_read_len,
-                                schedule.ingest_ranges, q, table, device)
-            for q in schedule.enlarge_reads] or None
+        if readout == "exact":
+            # per-epoch occurrence counts for the count_conflict parity: one
+            # truncated recount per enlargement boundary (the doubling
+            # readout lays out the initial table only)
+            epoch_occ = [
+                _occurrences_before(files, fmt, ksize, max_read_len,
+                                    schedule.ingest_ranges, q, table, device)
+                for q in schedule.enlarge_reads] or None
 
     if log:
         _emit_file_log(log, files, file_lengths, ksize, schedule, gb)
 
-    asm = RefAssembler(table, params, schedule, epoch_occ)
-    if log:
-        log.hash_params(asm.size, asm.n_nodes, asm.stats.hash_conflicts_occ)
-    stats = asm.run(prefix)
+    if readout == "doubling":
+        stats = assemble_doubling(table, params, prefix, device)
+        if log:
+            log.hash_params(stats.hash_size, stats.total_nodes,
+                            stats.hash_conflicts_occ)
+    else:
+        asm = RefAssembler(table, params, schedule, epoch_occ)
+        if log:
+            log.hash_params(asm.size, asm.n_nodes,
+                            asm.stats.hash_conflicts_occ)
+        stats = asm.run(prefix)
     if log:
         log.links(stats)
         log.pruning(stats)

@@ -8,7 +8,9 @@ insertion into the reference's hash (native hash_layout_*), the poly-A/T
 node inserted last (DBGgraph.cpp:152-164,417-418), and the enlargement
 schedule of an undersized table (kmerSet.cpp:132-189) — and hands the node
 table in slot order to native/assemble_engine.cpp, which replays the
-pruning and readout and writes the eight *.contig.* files.
+pruning and readout and writes the eight *.contig.* files.  The bubble
+comparison of the doubling readout (global_aligning,
+compare_two_seq_simple) lives here too, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +42,64 @@ class AssembleParams:
     contig_len_cutoff: int = 125       # -M
     max_doublings: int = 10            # -e (DBGgraph.cpp:18)
     buffer_reads: int = 10_000         # -b (enlargement check granularity)
+
+
+def global_aligning(seq_i: str, seq_j: str):
+    """Needleman-Wunsch, match +3 / mismatch -5 / gap -5, tie preference
+    subs >= gap_i >= gap_j (DBG_contig/global_aligning.cpp:20-35,98-182).
+    Returns the two aligned strings, '-' at gaps."""
+    gap = -5
+    n, m = len(seq_i), len(seq_j)
+    score = np.zeros((n + 1, m + 1), dtype=np.int64)
+    direct = np.zeros((n + 1, m + 1), dtype=np.int8)
+    score[0, 1:] = gap * np.arange(1, m + 1)
+    direct[0, 1:] = 1
+    score[1:, 0] = gap * np.arange(1, n + 1)
+    direct[1:, 0] = 2
+    si = np.frombuffer(seq_i.encode(), np.uint8)
+    sj = np.frombuffer(seq_j.encode(), np.uint8)
+    sub = np.where(si[:, None] == sj[None, :], 3, -5)
+    for i in range(1, n + 1):
+        srow = score[i - 1]
+        subs = srow[:-1] + sub[i - 1]
+        row = score[i]
+        drow = direct[i]
+        for j in range(1, m + 1):
+            s = subs[j - 1]
+            gi = row[j - 1] + gap
+            gj = srow[j] + gap
+            if s >= gi and s >= gj:
+                row[j] = s
+                drow[j] = 0
+            elif gi > s and gi >= gj:
+                row[j] = gi
+                drow[j] = 1
+            else:
+                row[j] = gj
+                drow[j] = 2
+    ai, aj = [], []
+    pi, pj = n, m
+    while pi > 0 or pj > 0:
+        d = direct[pi, pj]
+        if d == 0:
+            ai.append(seq_i[pi - 1])
+            aj.append(seq_j[pj - 1])
+            pi -= 1
+            pj -= 1
+        elif d == 1:
+            ai.append("-")
+            aj.append(seq_j[pj - 1])
+            pj -= 1
+        else:
+            ai.append(seq_i[pi - 1])
+            aj.append("-")
+            pi -= 1
+    return "".join(reversed(ai)), "".join(reversed(aj))
+
+
+def compare_two_seq_simple(s1: str, s2: str) -> int:
+    """Mismatches between two aligned strings, gaps not counted."""
+    return sum(1 for a, b in zip(s1, s2) if a != b and a != "-" and b != "-")
 
 
 def _cap(size: int, load: float) -> int:

@@ -1,6 +1,8 @@
 """.stat files and C++ number formatting (counterpart of the parts of
 dbg_assembly_tpu/io/stat.py that counting and the contig stage use):
-``ostream << double`` prints with precision 6, as printf("%g").
+``ostream << double`` prints with precision 6, as printf("%g");
+``boost::lexical_cast<std::string>(double)`` round-trips with 17 digits, as
+printf("%.17g") (the contig headers' avgDepth, contig.cpp:1006).
 """
 
 from __future__ import annotations
@@ -9,6 +11,11 @@ from __future__ import annotations
 def fmt_g6(x: float) -> str:
     """Format like C++ `ostream << double` (printf %g, 6 significant digits)."""
     return "%g" % x
+
+
+def fmt_lexical(x: float) -> str:
+    """Format like boost::lexical_cast<string>(double) (printf %.17g)."""
+    return "%.17g" % x
 
 
 def write_kmerfreq_stat(path: str, ksize: int, max_freq: int,

@@ -4,7 +4,8 @@ Counterpart of dbg_assembly_tpu/kmer/count.py.  Per batch the device
   1. chops [N, L] codes into canonical int64 k-mers (ops.chop: the CUDA
      kernel on a CUDA tensor, its plain twin on a CPU tensor), SENTINEL at
      invalid windows;
-  2. sorts the flat vector (torch.sort, stable);
+  2. sorts the flat vector (ops.sort: the CUDA radix sort on a CUDA
+     tensor, its plain twin on a CPU tensor; stable);
   3. run-length encodes it: run starts where x[i] != x[i-1], run lengths
      from the distances between starts.
 Batches merge on the device (merge_counted); the host sees numpy uint64 only
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops import sort as radix
 from ..ops.chop import SENTINEL, chop
 
 
@@ -26,7 +28,8 @@ def chop_canonical(codes: torch.Tensor, lengths: torch.Tensor, ksize: int):
     """[N, L] codes + [N] lengths -> (sorted flat canonical k-mers [N*P],
     n_valid); the SENTINEL of the invalid windows sorts to the end."""
     kmers, _, _ = chop(codes, lengths, ksize)
-    flat = torch.sort(kmers.reshape(-1), stable=True).values
+    # 2k + 1 bits: the sentinel's low bits order it after every k-mer
+    flat, _ = radix.sort(kmers.reshape(-1), 2 * ksize + 1)
     return flat, _n_valid(lengths, ksize, kmers.shape[1])
 
 
@@ -70,13 +73,15 @@ def count_batch(codes: torch.Tensor, lengths: torch.Tensor, ksize: int):
     return flat[starts], run_len, n_valid
 
 
-def merge_counted(parts: list[tuple[torch.Tensor, torch.Tensor]]):
-    """Merge per-batch (unique, counts) runs into one, on their device."""
+def merge_counted(parts: list[tuple[torch.Tensor, torch.Tensor]],
+                  ksize: int = 31):
+    """Merge per-batch (unique, counts) runs of k-mers (< 2^2k, no
+    sentinel) into one, on their device."""
     if len(parts) == 1:
         return parts
     ks = torch.cat([p[0] for p in parts])
     cs = torch.cat([p[1] for p in parts])
-    ks, order = torch.sort(ks, stable=True)
+    ks, order = radix.sort(ks, 2 * ksize, return_index=True)
     first, starts, _ = _run_starts(ks, ks.shape[0])
     seg = torch.cumsum(first, 0) - 1
     csum = torch.zeros(starts.shape[0], dtype=cs.dtype, device=cs.device)
@@ -111,13 +116,13 @@ class KmerCounter:
             self.parts.append((u, c))
             self.total_kmers += t
             if len(self.parts) >= 8:
-                self.parts = merge_counted(self.parts)
+                self.parts = merge_counted(self.parts, self.ksize)
 
     def finalize(self):
         """Returns (unique_sorted uint64, counts int64, total_kmers)."""
         if not self.parts:
             return np.zeros(0, np.uint64), np.zeros(0, np.int64), 0
-        self.parts = merge_counted(self.parts)
+        self.parts = merge_counted(self.parts, self.ksize)
         u, c = self.parts[0]
         return (u.cpu().numpy().view(np.uint64), c.cpu().numpy(),
                 self.total_kmers)

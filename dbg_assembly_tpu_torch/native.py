@@ -4,7 +4,9 @@ The same library as the JAX package's loader (dbg_assembly_tpu/native.py):
 native/build/libdbg_native.so, built on first use with ``make -C native``
 (g++).  This copy binds the entry points the port's slice calls: the FASTQ
 parser, the streaming ingest table (the smoke test's oracle), the hash-layout
-emulation and the exact contig readout engine.
+emulation, the exact contig readout engine, and the host passes of the
+doubling readout (links, slot ranks, chain heads, seed argmin, the GCC 4.4
+length sort) with the host twins of its device chain resolution.
 """
 
 from __future__ import annotations
@@ -92,6 +94,25 @@ def _build_and_load() -> ctypes.CDLL:
     lo.ingest_free.argtypes = [ctypes.c_void_p]
     lo.fastq_scan.restype = None
     lo.fastq_fill.restype = None
+    lo.slot_rank.restype = None
+    lo.slot_rank.argtypes = [_i64p, ctypes.c_int64, ctypes.c_uint64, _i64p]
+    lo.succ_build.restype = None
+    lo.succ_build.argtypes = [_u64p, ctypes.c_int64, _i32p, _i32p, _u8p,
+                              ctypes.c_int, _i64p]
+    lo.resolve_chains_host.restype = None
+    lo.resolve_chains_host.argtypes = [_i64p, ctypes.c_int64, _i64p, _i64p,
+                                       _u8p]
+    lo.collect_heads.restype = ctypes.c_int64
+    lo.collect_heads.argtypes = [_u8p, _i64p, _u8p, ctypes.c_int64, _i64p,
+                                 _i64p, _i64p]
+    lo.seg_argmin.restype = None
+    lo.seg_argmin.argtypes = [_i64p, _i64p, ctypes.c_int64, ctypes.c_int64,
+                              _i64p]
+    lo.links_pass.restype = None
+    lo.links_pass.argtypes = [_i32p, _i32p, ctypes.c_int64, ctypes.c_int32,
+                              _i32p, _i32p, _i32p, _i32p, _i64p]
+    lo.gcc44_sort_perm_desc.restype = None
+    lo.gcc44_sort_perm_desc.argtypes = [_u64p, ctypes.c_int64, _i64p]
     return lo
 
 
@@ -206,6 +227,123 @@ def _huge_zeros(n: int) -> np.ndarray:
     a = np.zeros(n, np.uint8)
     lib().madv_huge(ctypes.c_void_p(a.ctypes.data), a.nbytes)
     return a
+
+
+def _huge_empty(n: int, dtype) -> np.ndarray:
+    """np.empty marked MADV_HUGEPAGE before first touch: buffers the native
+    passes and the readout's gathers touch at random."""
+    a = np.empty(n, dtype)
+    lib().madv_huge(ctypes.c_void_p(a.ctypes.data), a.nbytes)
+    return a
+
+
+def slot_rank(slot_of: np.ndarray, size: int) -> np.ndarray:
+    """node -> iteration rank by ascending hash slot (one dense pass)."""
+    so = np.ascontiguousarray(slot_of, np.int64)
+    out = _huge_empty(len(so), np.int64)
+    lib().slot_rank(so.ctypes.data_as(_i64p), ctypes.c_int64(len(so)),
+                    ctypes.c_uint64(size), out.ctypes.data_as(_i64p))
+    return out
+
+
+def links_pass(lcnt: np.ndarray, rcnt: np.ndarray, cut: int):
+    """Per-node link counts (capped at 3), first-strict-max bases and the
+    256-bin depth histogram over both counter planes (calculate_kmer_links,
+    contig.cpp:107-205).  Returns (l_num, r_num, l_base, r_base, hist)."""
+    lc = np.ascontiguousarray(lcnt, np.int32)
+    rc = np.ascontiguousarray(rcnt, np.int32)
+    M = len(lc)
+    l_num, r_num, l_base, r_base = (np.empty(M, np.int32) for _ in range(4))
+    hist = np.empty(256, np.int64)
+    lib().links_pass(lc.ctypes.data_as(_i32p), rc.ctypes.data_as(_i32p),
+                     ctypes.c_int64(M), ctypes.c_int32(cut),
+                     l_num.ctypes.data_as(_i32p), r_num.ctypes.data_as(_i32p),
+                     l_base.ctypes.data_as(_i32p),
+                     r_base.ctypes.data_as(_i32p), hist.ctypes.data_as(_i64p))
+    return l_num, r_num, l_base, r_base, hist
+
+
+def succ_build(kmers: np.ndarray, l_base: np.ndarray, r_base: np.ndarray,
+               alive: np.ndarray, k: int) -> np.ndarray:
+    """Directed successor function over the 2M interleaved states (host
+    hash-lookup twin of pointer_doubling._succ_resolve's successor step)."""
+    km = np.ascontiguousarray(kmers, np.uint64)
+    lb = np.ascontiguousarray(l_base, np.int32)
+    rb = np.ascontiguousarray(r_base, np.int32)
+    al = np.ascontiguousarray(alive, np.uint8)
+    out = _huge_empty(2 * len(km), np.int64)
+    lib().succ_build(km.ctypes.data_as(_u64p), ctypes.c_int64(len(km)),
+                     lb.ctypes.data_as(_i32p), rb.ctypes.data_as(_i32p),
+                     al.ctypes.data_as(_u8p), ctypes.c_int(k),
+                     out.ctypes.data_as(_i64p))
+    return out
+
+
+def resolve_chains_host(succ: np.ndarray):
+    """Host twin of pointer_doubling._resolve_chains: the same (end, dist)
+    on every non-cyclic state; cyclic states carry only the flag.  Returns
+    (e int64, dist int64, cyclic bool)."""
+    sc = np.ascontiguousarray(succ, np.int64)
+    n = len(sc)
+    e = _huge_empty(n, np.int64)
+    dist = _huge_empty(n, np.int64)
+    cyc = _huge_empty(n, np.uint8)
+    lib().resolve_chains_host(sc.ctypes.data_as(_i64p), ctypes.c_int64(n),
+                              e.ctypes.data_as(_i64p),
+                              dist.ctypes.data_as(_i64p),
+                              cyc.ctypes.data_as(_u8p))
+    return e, dist, cyc.astype(bool)
+
+
+def collect_heads(alive: np.ndarray, succ: np.ndarray, cyclic: np.ndarray):
+    """Chain heads and cyclic-fallback nodes in one scan: state s is a head
+    iff its node is alive, neither s nor s^1 is cyclic and s^1 has no
+    successor.  Returns (head_states int64, fallback_nodes int64).
+
+    Scratch: 8 * n bytes for the heads and 4 * n for the fallback nodes,
+    allocated whole but touched only as far as they fill."""
+    al = np.ascontiguousarray(alive, np.uint8)
+    sc = np.ascontiguousarray(succ, np.int64)
+    cy = np.ascontiguousarray(cyclic, np.uint8)
+    n = len(sc)
+    heads = np.empty(n, np.int64)
+    fb = np.empty(n // 2 + 1, np.int64)
+    fbc = ctypes.c_int64(0)
+    nh = lib().collect_heads(al.ctypes.data_as(_u8p), sc.ctypes.data_as(_i64p),
+                             cy.ctypes.data_as(_u8p), ctypes.c_int64(n),
+                             heads.ctypes.data_as(_i64p),
+                             fb.ctypes.data_as(_i64p), ctypes.byref(fbc))
+    return heads[:nh].copy(), fb[:fbc.value].copy()
+
+
+def seg_argmin(cid: np.ndarray, key: np.ndarray, n_groups: int) -> np.ndarray:
+    """Per-group argmin: out[g] = the index i of the smallest (key[i], i)
+    with cid[i] == g.  Raises if a group has no member, where the native
+    pass leaves -1, which would index from the end if used."""
+    ci = np.ascontiguousarray(cid, np.int64)
+    ke = np.ascontiguousarray(key, np.int64)
+    if len(ci) != len(ke):
+        raise ValueError(f"cid has {len(ci)} entries, key {len(ke)}")
+    out = np.empty(n_groups, np.int64)
+    lib().seg_argmin(ci.ctypes.data_as(_i64p), ke.ctypes.data_as(_i64p),
+                     ctypes.c_int64(len(ci)), ctypes.c_int64(n_groups),
+                     out.ctypes.data_as(_i64p))
+    empty = np.flatnonzero(out < 0)
+    if len(empty):
+        raise ValueError(f"seg_argmin: {len(empty)} of {n_groups} groups "
+                         f"have no member (first: group {int(empty[0])})")
+    return out
+
+
+def gcc44_sort_perm_desc(lens: np.ndarray) -> np.ndarray:
+    """Index permutation of GCC 4.4's std::sort (the reference binaries'
+    compiler), descending by length, with its unstable tie order."""
+    ln = np.ascontiguousarray(lens, np.uint64)
+    out = np.empty(len(ln), np.int64)
+    lib().gcc44_sort_perm_desc(ln.ctypes.data_as(_u64p),
+                               ctypes.c_int64(len(ln)),
+                               out.ctypes.data_as(_i64p))
+    return out
 
 
 def hash_layout_disp(kmers_in_order: np.ndarray, size: int):

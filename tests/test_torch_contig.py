@@ -71,14 +71,13 @@ def test_pipeline_matches_jax(lib, tmp_path, init, doublings):
 
 
 def test_unported_options_raise(lib, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.run(lib, str(tmp_path / "d"), readout="doubling", device="cpu")
+    # the doubling readout is ported (tests/test_torch_doubling.py); the
+    # distributed stage is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.run(lib, str(tmp_path / "m"), mesh_devices=2, device="cpu")
     from dbg_assembly_tpu_torch import cli
-    for flag in (["--readout", "doubling"], ["--mesh", "4"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["debruijn_contig", *flag, "--device", "cpu", lib])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["debruijn_contig", "--mesh", "4", "--device", "cpu", lib])
 
 
 def test_cli_debruijn_contig(lib, tmp_path):
