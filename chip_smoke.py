@@ -6,38 +6,53 @@
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: a CUDA card must be present; prints the nvidia-smi name and
      power limit and the CUDA version;
-  2. build: the chop kernel (ops/csrc/chop.cu) and the radix sort
-     (ops/csrc/radix_sort.cu), one nvcc each, and native/ (make), all
-     started together;
-  3. kernel vs plain on the card: chop against chop_plain on the same CUDA
+  2. build: the chop kernel (ops/csrc/chop.cu), the radix sort
+     (ops/csrc/radix_sort.cu) and the seven triage probes
+     (ops/csrc/probe_*.cu), one nvcc each, and native/ (make), all started
+     together; prints ptxas's registers, shared memory and spills per
+     kernel;
+  3. the triage entry point on the card (tools/triage.py): every probe
+     kernel and the chop, each in its own process, must equal its plain
+     version and the JAX triage's numpy expectation exactly; each process
+     starts with its counts at 0 and reports its launches;
+  4. probes vs plain on the card: each probe kernel against its plain
+     version on the probe's own input, exact, timed with CUDA events beside
+     its plain version and, where one PyTorch call computes it, that call;
+  5. kernel vs plain on the card: chop against chop_plain on the same CUDA
      tensors, both modes, exact equality (k 16/17/31, ragged reads, reads
      shorter than k, and the main path's 100 000 x 150 batch at k = 31,
      timed with CUDA events);
-  4. the slice at E. coli scale: a 4.6 Mb simulated genome, 150 bp pairs at
+  6. the slice at E. coli scale: a 4.6 Mb simulated genome, 150 bp pairs at
      40x, written as two FASTQ files;
-  5. sort vs plain on the card: the radix sort against sort_plain on the
+  7. sort vs plain on the card: the radix sort against sort_plain on the
      same CUDA tensors, keys and index exactly equal: n = 0, 1, 1000, all
-     keys equal, keys with the sentinel, key_bits 34/35/62/63, and the main
-     path's shapes, timed with CUDA events in turns plain/kernel/kernel/
-     plain: kmerfreq's batch (200 000 x 134 windows at k = 17, keys only),
-     ingest's batch (100 000 x 120 at k = 31, with index) and an 8-part
-     merge of the library's first 8 ingest batches (with index);
-  6. the three stage runs through cli.main: ``kmerfreq -k 17 -m 1``,
+     keys equal, keys with the sentinel, key_bits 34/35/62/63, n at the
+     kernel's tile boundaries, and the main path's shapes, timed with CUDA
+     events in turns plain/kernel/kernel/plain beside torch.sort(keys,
+     stable=True): kmerfreq's batch (200 000 x 134 windows at k = 17, keys
+     only), ingest's batch (100 000 x 120 at k = 31, with index) and an
+     8-part merge of the library's first 8 ingest batches (with index);
+  8. the three stage runs through cli.main: ``kmerfreq -k 17 -m 1``,
      ``debruijn_contig -k 31 -i 0.02 -M 125`` and the same with
      ``--readout doubling``; each kernel's launch count is set to 0 just
      before each run and read just after, and must be > 0 for both kernels
      in every run; wall time and peak device memory per run;
-  7. oracles: the doubling run's .seq and .small record multisets,
+  9. oracles: the doubling run's .seq and .small record multisets,
      .contig.kmer.freq bytes and tip/lowedge/bubble removal counts equal the
      exact run's; the GPU node table at k = 31 and the GPU k = 17 counts
      equal the shared native C++ ingest on the same files;
-  8. the doubling stage step by step on that node table (graph set-up,
+  10. the doubling stage step by step on that node table (graph set-up,
      links, tips, low edges, bubbles, readout), with the chain resolution
      timed on the card (_succ_resolve) against the native host twins
      (succ_build + resolve_chains_host), their outputs compared, and the
      host memory of collect_heads' scratch.
-The last two lines of standard output are the kernels' JSON record and
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+Bounds (bound_ms) are the larger of the bytes each kernel must move (each
+input read once, each output written once) over the published 3.35 TB/s
+and its operations over 67 T a second (the published float32 rate outside
+the tensor cores; integer ALU work is taken at the same rate).  The last
+lines of standard output are the card's nvidia-smi name and power limit,
+the kernels' JSON record and {"ok": true, "device": {...}}.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +71,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
+ALU_OPS_PER_S = 67e12          # float32 outside the tensor cores, published
 GENOME_LEN = 4_600_000
 DEPTH = 40.0
 READ_LEN = 150
@@ -72,7 +89,83 @@ def _smi() -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
+def _bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for the work at published
+    rates."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ALU_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
 # ---------------------------------------------------------------- phase 3
+def phase_triage() -> dict:
+    """The triage entry point on the card; returns each probe's launches."""
+    from dbg_assembly_tpu_torch.tools import triage
+    results = triage.run_all("cuda")
+    bad = {n: r["err"] for n, r in results.items() if not r["ok"]}
+    if bad:
+        raise AssertionError(f"triage rows failed on the card: {bad}")
+    _log(f"triage on the card: all {len(results)} rows OK")
+    return {n: r["launches"] for n, r in results.items()}
+
+
+# ---------------------------------------------------------------- phase 4
+# one PyTorch call that computes the probe's function on the same input
+# (timed as library_ms; the port never calls these)
+_PROBE_LIBRARY = {
+    "copy_f32": lambda x: torch.mul(x, 2.0),
+    "copy_u32": lambda x: torch.add(x, 7),      # wrapping add on the bits
+    "grid_block": lambda x: torch.add(x, 1.0),
+}
+
+
+def _probe_ops(name: str, x: torch.Tensor) -> int:
+    """Operations of a probe on x: one an element an output, four for the
+    shift probe, two a compare-exchange in the sort network."""
+    n = x.numel()
+    if name == "shift_u32":
+        return 4 * n
+    if name == "two_out_u32":
+        return 2 * n
+    if name == "fori_sort_net":
+        rows, w = x.shape
+        stages = w.bit_length() - 1
+        return rows * (w // 2) * stages * (stages + 1) // 2 * 2
+    return n
+
+
+def phase_probes(probes) -> dict:
+    """Each probe kernel against its plain version on its own input."""
+    out = {}
+    for name, p in probes.PROBES.items():
+        x = probes.to_torch(p.make_input()).cuda()
+        got = p.kernel(x)
+        torch.cuda.synchronize()
+        want = p.plain(x)
+        err = _max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"probe {name} kernel differs from its plain"
+                                 f" version on the card: max abs err {err}")
+        ms, plain_ms = _turns(f"probe {name} {tuple(x.shape)}",
+                              lambda: p.kernel(x), lambda: p.plain(x))
+        lib = _PROBE_LIBRARY.get(name)
+        library_ms = None
+        if lib is not None:
+            if not torch.equal(lib(x), want[0]):
+                raise AssertionError(f"probe {name}: library call != plain")
+            library_ms = _cuda_ms(lambda: lib(x))
+        nbytes = x.nbytes + sum(w.nbytes for w in want)
+        bound_ms, bound_by = _bound(nbytes, _probe_ops(name, x))
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms}
+    _log("probe kernels == plain versions on the card: "
+         + ", ".join(out))
+    return out
+
+
+# ---------------------------------------------------------------- phase 5
 def _ragged(rng, N: int, L: int, k: int):
     codes = rng.integers(0, 4, (N, L)).astype(np.uint8)
     lengths = rng.integers(0, L + 1, N).astype(np.int32)
@@ -82,7 +175,9 @@ def _ragged(rng, N: int, L: int, k: int):
             torch.from_numpy(lengths).cuda())
 
 
-def _max_abs_err(got, want) -> int:
+def _max_abs_err(got, want) -> float:
+    """Largest |kernel - plain| over the outputs (float64 for float
+    outputs, int64 for integer ones)."""
     err = 0
     for g, w in zip(got, want):
         if w is None:
@@ -93,8 +188,9 @@ def _max_abs_err(got, want) -> int:
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"kernel output {g.dtype} {tuple(g.shape)}"
                                  f" != plain {w.dtype} {tuple(w.shape)}")
-        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                           .abs().max().item()) if g.numel() else 0)
+        t = torch.float64 if g.is_floating_point() else torch.int64
+        err = max(err, (g.to(t) - w.to(t)).abs().max().item()
+                  if g.numel() else 0)
     return err
 
 
@@ -137,6 +233,9 @@ def phase_kernel(chop) -> dict:
         rng.integers(0, 4, (N, L)).astype(np.uint8)).cuda()
     lengths = torch.full((N,), L, dtype=torch.int32, device="cuda")
     times = {}
+    # bytes: codes and lengths read once, k-mers (and edge codes) written
+    nbytes = {e: N * L + 4 * N + N * (L - k + 1) * (10 if e else 8)
+              for e in (False, True)}
     for edges in (False, True):
         got = chop.chop(codes, lengths, k, edges)
         torch.cuda.synchronize()
@@ -152,12 +251,16 @@ def phase_kernel(chop) -> dict:
                              f"card: max abs err {err}")
     _log(f"chop kernel == chop_plain on the card (k 16/17/31, both modes, "
          f"ragged + {N}x{L}); max abs err {err}")
+    bound_ms, bound_by = _bound(nbytes[True])
     return {"max_abs_err": err, "ms": times[True][0],
-            "plain_ms": times[True][1], "ms_count_mode": times[False][0],
-            "plain_ms_count_mode": times[False][1]}
+            "plain_ms": times[True][1], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "ms_count_mode": times[False][0],
+            "plain_ms_count_mode": times[False][1],
+            "bound_ms_count_mode": _bound(nbytes[False])[0]}
 
 
-# ---------------------------------------------------------------- phase 4
+# ---------------------------------------------------------------- phase 6
 def _write_fastq(path: str, mate: int, reads: np.ndarray,
                  quals: np.ndarray) -> None:
     with open(path, "wb") as f:
@@ -182,7 +285,7 @@ def make_library(workdir: str) -> tuple[str, list[str], int]:
     return lib, files, 2 * len(r1)
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 7
 def _sort_check(srt, keys: torch.Tensor, bits: int, index: bool,
                 what: str) -> int:
     got = srt.sort(keys, bits, index)
@@ -221,15 +324,20 @@ def phase_sort(srt, chop, files: list[str]) -> dict:
     for bits in (34, 35, 62, 63):
         cases.append((f"key_bits={bits}", draw(1_000_003, bits,
                                                pool=300_000), bits))
+    tile = srt.tile()
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 17):
+        for bits in (35, 63):
+            cases.append((f"n={n} at the tile of {tile}, key_bits={bits}",
+                          draw(n, bits, pool=max(n // 4, 1)), bits))
     err = 0
     for what, keys, bits in cases:
         for index in (False, True):
             err = max(err, _sort_check(srt, keys, bits, index, what))
     _log(f"radix sort == sort_plain on the card: n 0/1/1000, all equal, "
-         f"sentinel at k 17/31, key_bits 34/35/62/63, keys and index")
+         f"sentinel at k 17/31, key_bits 34/35/62/63, n = {tile} - 1, "
+         f"{tile}, {tile} + 1, 3 * {tile} + 17; keys and index")
 
     rng = np.random.default_rng(1)
-    times = {}
     # kmerfreq's batch: 200 000 reads of 150 bases at k = 17, keys only
     codes = torch.from_numpy(rng.integers(0, 4, (200_000, READ_LEN))
                              .astype(np.uint8)).cuda()
@@ -252,24 +360,25 @@ def phase_sort(srt, chop, files: list[str]) -> dict:
     del c
     shapes.append(("merge", torch.cat(parts), 62, True))
     del parts
+    rec = {}
     for name, keys, bits, index in shapes:
         err = max(err, _sort_check(srt, keys, bits, index, name))
-        times[name] = _turns(
-            f"sort {name}: {keys.shape[0]} keys, key_bits {bits}, "
-            f"index {index}",
-            lambda: srt.sort(keys, bits, index),
-            lambda: srt.sort_plain(keys, bits, index))
-        times[name + "_n"] = keys.shape[0]
+        what = (f"sort {name}: {keys.shape[0]} keys, key_bits {bits}, "
+                f"index {index}")
+        ms, plain_ms = _turns(what, lambda: srt.sort(keys, bits, index),
+                              lambda: srt.sort_plain(keys, bits, index))
+        library_ms = _cuda_ms(lambda: torch.sort(keys, stable=True))
+        _log(f"{what}: torch.sort(keys, stable=True) {library_ms:.4f} ms")
+        # bytes: the keys read once and written once, the index written
+        bound_ms, bound_by = _bound(keys.shape[0] * (16 + 8 * index))
+        suf = "" if name == "count" else "_" + name
+        rec.update({"ms" + suf: ms, "plain_ms" + suf: plain_ms,
+                    "bound_ms" + suf: bound_ms, "bound_by" + suf: bound_by,
+                    "library_ms" + suf: library_ms,
+                    "n" + suf: keys.shape[0]})
+    rec["max_abs_err"] = err
     torch.cuda.empty_cache()
-    return {"max_abs_err": err,
-            "ms": times["count"][0], "plain_ms": times["count"][1],
-            "n": times["count_n"],
-            "ms_ingest": times["ingest"][0],
-            "plain_ms_ingest": times["ingest"][1],
-            "n_ingest": times["ingest_n"],
-            "ms_merge": times["merge"][0],
-            "plain_ms_merge": times["merge"][1],
-            "n_merge": times["merge_n"]}
+    return rec
 
 
 def _fasta_lengths(path: str) -> np.ndarray:
@@ -305,7 +414,7 @@ def _phase_wall(name: str, fn):
     return out
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 8
 def phase_slice(workdir: str, lib: str, kernels: dict) -> tuple:
     """The three stage runs through cli.main; returns (launches summed
     over the runs per kernel, exact prefix, doubling prefix)."""
@@ -349,7 +458,7 @@ def phase_slice(workdir: str, lib: str, kernels: dict) -> tuple:
     return totals, prefix, dprefix
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 9
 def _depth_records(path: str) -> list[bytes]:
     """Depth files are >name\\n<raw bytes>\\n records (the bytes never hold
     a newline)."""
@@ -469,7 +578,7 @@ def phase_oracle(files: list[str], lib: str):
     return gpu
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 10
 def _rss() -> int:
     """Resident host memory of this process, bytes."""
     with open("/proc/self/status") as f:
@@ -571,7 +680,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from dbg_assembly_tpu_torch import native
-        from dbg_assembly_tpu_torch.ops import build, chop
+        from dbg_assembly_tpu_torch.ops import build, chop, probes
         from dbg_assembly_tpu_torch.ops import sort as srt
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -583,14 +692,18 @@ def main() -> int:
          f"{torch.cuda.get_device_name(0)}")
 
     # one nvcc per kernel source and make for native/, all at once
-    with ThreadPoolExecutor(max_workers=3) as ex:
-        jobs = {"chop.cu (nvcc)": ex.submit(_timed, build.build, "chop"),
-                "radix_sort.cu (nvcc)": ex.submit(_timed, build.build,
-                                                  "radix_sort"),
-                "native/ (make)": ex.submit(_timed, native.build)}
+    sources = ["chop", "radix_sort", *("probe_" + n for n in probes.PROBES)]
+    with ThreadPoolExecutor(max_workers=len(sources) + 1) as ex:
+        jobs = {f"{src}.cu (nvcc)": ex.submit(_timed, build.build, src)
+                for src in sources}
+        jobs["native/ (make)"] = ex.submit(_timed, native.build)
         _log("build: " + ", ".join(f"{name} {fut.result():.2f} s"
                                    for name, fut in jobs.items()))
+    for src in sources:
+        _log(f"ptxas, {src}.cu: " + " | ".join(build.resources(src)))
 
+    probe_launches = phase_triage()
+    probe_recs = phase_probes(probes)
     kern = phase_kernel(chop)
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -614,6 +727,17 @@ def main() -> int:
          "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
          "launches": launches["radix_sort"], **sort_rec}]
+    for name, p in probes.PROBES.items():
+        records.append({
+            "name": f"probe_{name}", "route": "cuda",
+            "source": f"dbg_assembly_tpu_torch/ops/csrc/probe_{name}.cu",
+            "replaces": p.replaces, "launches": probe_launches[name],
+            **probe_recs[name]})
+    for rec in records:
+        if rec["launches"] <= 0 or rec["max_abs_err"] != 0:
+            raise AssertionError(f"kernel {rec['name']}: launches "
+                                 f"{rec['launches']}, max abs err "
+                                 f"{rec['max_abs_err']}")
     _log(smi)
     _log(json.dumps({"kernels": records}))
     _log(json.dumps({"ok": True, "device": {

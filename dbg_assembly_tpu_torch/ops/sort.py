@@ -1,5 +1,5 @@
-"""Stable key sort: the CUDA radix sort (csrc/radix_sort.cu) and its plain
-twin.
+"""Stable key sort: the CUDA one-sweep radix sort (csrc/radix_sort.cu) and
+its plain twin.
 
 ``sort`` is every key sort of counting and graph ingest.  On a CUDA tensor
 it launches the kernel (and raises if a launch fails); on a CPU tensor it
@@ -24,6 +24,7 @@ Contract, for keys [n] contiguous int64:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,6 +42,26 @@ def _check(keys: torch.Tensor, key_bits: int) -> None:
                         f"{tuple(keys.shape)}")
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built on first use, its C signatures set once."""
+    from . import build
+    lib = build.load("radix_sort")
+    lib.radix_sort_tile.restype = ctypes.c_int
+    lib.radix_sort_tile.argtypes = []
+    lib.radix_sort_scratch_bytes.restype = ctypes.c_longlong
+    lib.radix_sort_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.radix_sort_launch.restype = ctypes.c_int
+    lib.radix_sort_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_int, *[ctypes.c_void_p] * 6]
+    return lib
+
+
+def tile() -> int:
+    """Keys per tile of the kernel's one-sweep passes (needs the build)."""
+    return _lib().radix_sort_tile()
 
 
 def passes(key_bits: int) -> int:
@@ -65,28 +86,19 @@ def sort(keys: torch.Tensor, key_bits: int, return_index: bool = False):
         return (torch.empty(0, dtype=torch.int64, device=dev),
                 torch.empty(0, dtype=torch.int64, device=dev)
                 if return_index else None)
-    from . import build
-    lib = build.load("radix_sort")
-    lib.radix_sort_tile.restype = ctypes.c_int
-    lib.radix_sort_tile.argtypes = []
-    fn = lib.radix_sort_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   *[ctypes.c_void_p] * 7]
-    tile = lib.radix_sort_tile()
-    n_blocks = -(-n // tile)
+    lib = _lib()
     kbuf = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
     ibuf = ([torch.empty(n, dtype=torch.int64, device=dev)
              for _ in range(2)] if return_index else [None, None])
-    counts = torch.empty(256 * n_blocks, dtype=torch.int32, device=dev)
-    totals = torch.empty(256, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.radix_sort_scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(keys.data_ptr(), n, key_bits, kbuf[0].data_ptr(),
-                 kbuf[1].data_ptr(),
-                 ibuf[0].data_ptr() if return_index else None,
-                 ibuf[1].data_ptr() if return_index else None,
-                 counts.data_ptr(), totals.data_ptr(), stream)
+        err = lib.radix_sort_launch(
+            keys.data_ptr(), n, key_bits, kbuf[0].data_ptr(),
+            kbuf[1].data_ptr(), ibuf[0].data_ptr() if return_index else None,
+            ibuf[1].data_ptr() if return_index else None, scratch.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"radix sort kernel launch failed: CUDA error "
                            f"{err}")

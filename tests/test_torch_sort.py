@@ -167,3 +167,26 @@ def test_kernel_matches_plain_on_card(bits, index):
     assert (idx is None) == (widx is None)
     if index:
         assert torch.equal(idx, widx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("at", ["tile-1", "tile", "tile+1", "3*tile+17"])
+@pytest.mark.parametrize("index", [False, True])
+def test_kernel_at_tile_boundaries_on_card(at, index):
+    """The one-sweep kernel's ragged last tile and its look-back across
+    one, two and four tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the radix sort kernel has no CPU "
+                    "mode")
+    tile = srt.tile()
+    n = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "3*tile+17": 3 * tile + 17}[at]
+    keys = torch.from_numpy(_keys(n, n, 62, sentinels=n // 100,
+                                  distinct=n // 4)).cuda()
+    got, idx = srt.sort(keys, 63, index)
+    torch.cuda.synchronize()
+    want, widx = srt.sort_plain(keys, 63, index)
+    assert torch.equal(got, want)
+    assert (idx is None) == (widx is None)
+    if index:
+        assert torch.equal(idx, widx)
