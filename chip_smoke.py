@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (dbg_assembly_tpu_torch) on one card.
 
-    python3 chip_smoke.py          # from the root of the repository
+    python3 chip_smoke.py            # from the root of the repository
+    python3 chip_smoke.py --profile  # and each stage once more, profiled
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: a CUDA card must be present; prints the nvidia-smi name and
@@ -19,9 +20,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      version on the probe's own input, exact, timed with CUDA events beside
      its plain version and, where one PyTorch call computes it, that call;
   5. kernel vs plain on the card: chop against chop_plain on the same CUDA
-     tensors, both modes, exact equality (k 16/17/31, ragged reads, reads
-     shorter than k, and the main path's 100 000 x 150 batch at k = 31,
-     timed with CUDA events);
+     tensors, both modes, exact equality, at the shapes its tiling makes
+     hard (k 1/16/17/31; one row; N not a multiple of a tile's rows; L 150,
+     250 and 157 (odd P); rows of 5003 and 30011 codes (spans not a
+     multiple of 16 bytes, segment tiles); codes at an odd address; reads
+     shorter than k; reads longer than L; ragged reads at the main path's
+     size), then timed with CUDA events in turns plain/kernel/kernel/plain,
+     once with torch.profiler (the kernel's own device time) and by the
+     host time a call takes to return, at the main path's shapes:
+     kmerfreq's batch (200 000 x 150, k = 17, counting), ingest's
+     (100 000 x 150, k = 31, edges) and the latter counted;
   6. the slice at E. coli scale: a 4.6 Mb simulated genome, 150 bp pairs at
      40x, written as two FASTQ files;
   7. sort vs plain on the card: the radix sort against sort_plain on the
@@ -36,7 +44,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``debruijn_contig -k 31 -i 0.02 -M 125`` and the same with
      ``--readout doubling``; each kernel's launch count is set to 0 just
      before each run and read just after, and must be > 0 for both kernels
-     in every run; wall time and peak device memory per run;
+     in every run; wall time and peak device memory per run; with
+     ``--profile``, each run once more under torch.profiler (device busy
+     time, idle share, the chop's and the sort's device time);
   9. oracles: the doubling run's .seq and .small record multisets,
      .contig.kmer.freq bytes and tip/lowedge/bubble removal counts equal the
      exact run's; the GPU node table at k = 31 and the GPU k = 17 counts
@@ -166,13 +176,22 @@ def phase_probes(probes) -> dict:
 
 
 # ---------------------------------------------------------------- phase 5
-def _ragged(rng, N: int, L: int, k: int):
+def _reads(rng, N: int, L: int, k: int, offset: int = 0, full: bool = False,
+           lengths=None):
+    """An [N, L] batch on the card: ragged reads (some empty, some of k - 1
+    or k bases) or, with ``full``, reads of L bases; pad 4 past a read.
+    ``offset`` puts the codes that many bytes past a 16-aligned address."""
     codes = rng.integers(0, 4, (N, L)).astype(np.uint8)
-    lengths = rng.integers(0, L + 1, N).astype(np.int32)
-    lengths[:4] = [0, 1, k - 1, k]
+    if lengths is None:
+        lengths = (np.full(N, L) if full else rng.integers(0, L + 1, N))
+        if not full and N >= 8:
+            lengths[:4] = [0, 1, k - 1, k]
+    lengths = np.asarray(lengths, np.int32)
     codes[np.arange(L)[None, :] >= lengths[:, None]] = 4
-    return (torch.from_numpy(codes).cuda(),
-            torch.from_numpy(lengths).cuda())
+    buf = torch.zeros(codes.size + offset, dtype=torch.uint8, device="cuda")
+    dev = buf[offset:].view(N, L)
+    dev.copy_(torch.from_numpy(codes))
+    return dev, torch.from_numpy(lengths).cuda()
 
 
 def _max_abs_err(got, want) -> float:
@@ -207,6 +226,18 @@ def _cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _host_ms(fn, iters: int = 20) -> float:
+    """Host time (ms) a call takes to return, the card idle at the start."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
 def _turns(name: str, kern, plain) -> tuple[float, float]:
     """CUDA-event ms of kern and plain in turns plain/kernel/kernel/plain;
     returns the means (kernel, plain)."""
@@ -217,47 +248,113 @@ def _turns(name: str, kern, plain) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _profiled_ms(fn, pattern: str, iters: int = 10):
+    """Mean device time (ms) of the kernels whose name holds ``pattern``,
+    from one torch.profiler run of ``iters`` calls; None when the profiler
+    shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if pattern in e.key]
+    n = sum(e.count for e in evs)
+    us = sum(e.self_device_time_total for e in evs)
+    return us / n / 1e3 if n and us else None
+
+
 def phase_kernel(chop) -> dict:
+    """The chop kernel against chop_plain on the same CUDA tensors, both
+    modes, exact, at the shapes its tiling makes hard and at the main
+    path's; timed in turns at the main path's three shapes."""
     rng = np.random.default_rng(0)
+    lib = chop._lib()
+    cases = []
+    for k in (1, 16, 17, 31):
+        for N, L in ((1, 150), (333, 150), (301, 250), (97, 157), (5, 5003),
+                     (3, 30011)):
+            # long rows (segment tiles): long reads, one past the row
+            lens = (np.r_[L + 3, rng.integers(L // 2, L + 1, N - 1)]
+                    if L > 1000 else None)
+            for off in (0, 1):
+                cases.append((f"{N}x{L} k={k} offset {off}",
+                              *_reads(rng, N, L, k, off, full=N == 1,
+                                      lengths=lens), k))
+        cases.append((f"64x150 reads shorter than k={k}",
+                      *_reads(rng, 64, 150, k, lengths=np.minimum(
+                          rng.integers(0, 151, 64), k - 1)), k))
+        cases.append((f"64x150 lengths 155 > L, k={k}",
+                      *_reads(rng, 64, 150, k, lengths=np.full(64, 155)), k))
+    cases.append(("100000x150 ragged k=31",
+                  *_reads(rng, 100_000, READ_LEN, 31), 31))
+    cases.append(("200000x150 ragged k=17",
+                  *_reads(rng, 200_000, READ_LEN, 17), 17))
     err = 0
-    for k in (16, 17, 31):
-        codes, lengths = _ragged(rng, 333, 157, k)
+    for what, codes, lengths, k in cases:
         for edges in (False, True):
+            N, L = codes.shape
+            rows, pw = chop.tile_plan(L, k)
+            if lib.chop_smem_bytes(L, k, rows, pw) != \
+                    chop.smem_bytes(rows, pw, L, k):
+                raise AssertionError(f"chop {what}: shared memory of the "
+                                     "tile plan differs from the kernel's")
             got = chop.chop(codes, lengths, k, edges)
             torch.cuda.synchronize()
-            err = max(err, _max_abs_err(
-                got, chop.chop_plain(codes, lengths, k, edges)))
-    # the main path's batch: 100 000 reads x 150 bases, k = 31
-    N, L, k = 100_000, READ_LEN, 31
-    codes = torch.from_numpy(
-        rng.integers(0, 4, (N, L)).astype(np.uint8)).cuda()
-    lengths = torch.full((N,), L, dtype=torch.int32, device="cuda")
-    times = {}
-    # bytes: codes and lengths read once, k-mers (and edge codes) written
-    nbytes = {e: N * L + 4 * N + N * (L - k + 1) * (10 if e else 8)
-              for e in (False, True)}
-    for edges in (False, True):
+            e = _max_abs_err(got, chop.chop_plain(codes, lengths, k, edges))
+            if e != 0:
+                raise AssertionError(f"chop kernel differs from chop_plain "
+                                     f"on the card ({what}, edges={edges}):"
+                                     f" max abs err {e}")
+            err = max(err, e)
+    del cases
+    _log(f"chop kernel == chop_plain on the card: k 1/16/17/31 x (1x150 "
+         f"full, 333x150, 301x250, 97x157, 5x5003, 3x30011; codes at "
+         f"offsets 0 and 1), reads shorter than k, lengths > L, ragged "
+         f"100000x150 k=31 and 200000x150 k=17; both modes; max abs err "
+         f"{err}")
+
+    # the main path's shapes: kmerfreq's batch (counting), ingest's batch
+    # (edges) and ingest's batch counted (continuity with earlier runs)
+    rec = {"max_abs_err": err, "library_ms": None}
+    for suf, N, k, edges in (("_kmerfreq", 200_000, 17, False),
+                             ("", 100_000, 31, True),
+                             ("_count_mode", 100_000, 31, False)):
+        codes, lengths = _reads(rng, N, READ_LEN, k, full=True)
+        P = READ_LEN - k + 1
         got = chop.chop(codes, lengths, k, edges)
         torch.cuda.synchronize()
-        err = max(err, _max_abs_err(
-            got, chop.chop_plain(codes, lengths, k, edges)))
+        e = _max_abs_err(got, chop.chop_plain(codes, lengths, k, edges))
+        if e != 0:
+            raise AssertionError(f"chop kernel differs from chop_plain at "
+                                 f"{N}x{READ_LEN} k={k}: max abs err {e}")
         del got
-        times[edges] = _turns(
-            f"chop {N}x{L} k={k} edges={edges}",
-            lambda: chop.chop(codes, lengths, k, edges),
-            lambda: chop.chop_plain(codes, lengths, k, edges))
-    if err != 0:
-        raise AssertionError(f"chop kernel differs from chop_plain on the "
-                             f"card: max abs err {err}")
-    _log(f"chop kernel == chop_plain on the card (k 16/17/31, both modes, "
-         f"ragged + {N}x{L}); max abs err {err}")
-    bound_ms, bound_by = _bound(nbytes[True])
-    return {"max_abs_err": err, "ms": times[True][0],
-            "plain_ms": times[True][1], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "ms_count_mode": times[False][0],
-            "plain_ms_count_mode": times[False][1],
-            "bound_ms_count_mode": _bound(nbytes[False])[0]}
+        what = f"chop {N}x{READ_LEN} k={k} edges={edges}"
+        ms, plain_ms = _turns(what, lambda: chop.chop(codes, lengths, k,
+                                                      edges),
+                              lambda: chop.chop_plain(codes, lengths, k,
+                                                      edges))
+        dev_ms = _profiled_ms(lambda: chop.chop(codes, lengths, k, edges),
+                              "chop_kernel")
+        host_ms = _host_ms(lambda: chop.chop(codes, lengths, k, edges))
+        # bytes: codes and lengths read once, k-mers (and edge codes)
+        # written once
+        bound_ms, bound_by = _bound(N * READ_LEN + 4 * N
+                                    + N * P * (10 if edges else 8))
+        rows, pw = chop.tile_plan(READ_LEN, k)
+        _log(f"{what}: profiler device time {dev_ms} ms a launch, host "
+             f"{host_ms:.4f} ms a call; bound "
+             f"{bound_ms:.4f} ms ({bound_by}); tiles of {rows} rows, "
+             f"{chop.smem_bytes(rows, pw, READ_LEN, k)} B of shared "
+             f"memory a block")
+        rec.update({"ms" + suf: ms, "plain_ms" + suf: plain_ms,
+                    "bound_ms" + suf: bound_ms, "bound_by" + suf: bound_by,
+                    "device_ms" + suf: dev_ms, "host_ms" + suf: host_ms})
+        del codes, lengths
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------- phase 6
@@ -456,6 +553,55 @@ def phase_slice(workdir: str, lib: str, kernels: dict) -> tuple:
                 <= 1.2 * GENOME_LEN and _n50(lens) >= 500):
             raise AssertionError("contig set out of the expected range")
     return totals, prefix, dprefix
+
+
+def phase_profile(workdir: str, lib: str) -> None:
+    """``--profile``: each stage of phase 8 once more under torch.profiler:
+    wall, device busy time (the sum of every device item's self time), the
+    idle share, the chop's and the sort's device time and the largest
+    device items."""
+    from torch.profiler import ProfilerActivity, profile
+    from dbg_assembly_tpu_torch import cli
+    contig = ["debruijn_contig", "-k", "31", "-i", "0.02", "-M", "125"]
+    runs = [("kmerfreq -k 17 -m 1", ["kmerfreq", "-k", "17", "-m", "1"]),
+            ("debruijn_contig (exact)",
+             contig + ["-o", os.path.join(workdir, "prof")]),
+            ("debruijn_contig --readout doubling",
+             contig + ["--readout", "doubling", "-o",
+                       os.path.join(workdir, "prof_doubling")])]
+    for title, argv in runs:
+        torch.cuda.synchronize()
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stderr(null), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            cli.main(argv + [lib, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        # device-side items only (kernels, copies, sets): a CPU op's self
+        # device time repeats its kernels'; the profiler's own buffer
+        # requests are not the program's work
+        items = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.self_device_time_total > 0
+                        and e.key != "Activity Buffer Request"),
+                       reverse=True)
+        busy = sum(ms for ms, _, _ in items)
+
+        def of(*names):
+            sel = [(ms, n) for ms, n, key in items
+                   if any(x in key for x in names)]
+            return sum(ms for ms, _ in sel), sum(n for _, n in sel)
+
+        chop_ms, chop_n = of("chop_kernel")
+        sort_ms, sort_n = of("hist_kernel", "scan_kernel", "onesweep_kernel")
+        _log(f"profile {title}: wall {wall:.3f} s (profiled), device busy "
+             f"{busy:.3f} ms, idle share {1 - busy / 1e3 / wall:.4f}; chop "
+             f"{chop_ms:.3f} ms ({chop_n} launches), radix sort "
+             f"{sort_ms:.3f} ms ({sort_n} kernel launches); top: " + "; ".join(
+                 f"{key[:60]} {ms:.3f} ms x{n}" for ms, n, key in items[:8]))
 
 
 # ---------------------------------------------------------------- phase 9
@@ -714,6 +860,8 @@ def main() -> int:
         sort_rec = phase_sort(srt, chop, files)
         launches, prefix, dprefix = phase_slice(
             workdir, lib, {"chop": chop, "radix_sort": srt})
+        if "--profile" in sys.argv[1:]:
+            phase_profile(workdir, lib)
         phase_doubling_oracle(workdir, prefix, dprefix)
         table = phase_oracle(files, lib)
         phase_doubling_steps(table, workdir)

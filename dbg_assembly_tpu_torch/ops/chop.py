@@ -18,14 +18,71 @@ there is read as its low two bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 SENTINEL = torch.iinfo(torch.int64).max
 MAX_K = 31
+# shared memory a block of the kernel takes at most (the default limit,
+# about four blocks an SM) and the most rows a tile takes (64 measured best
+# at the main path's shapes on the H100, PERF.md section 6)
+SMEM_BUDGET = 48 * 1024
+MAX_TILE_ROWS = 64
 
 # kernel launches since import (or since the caller last reset it)
 launches = 0
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def smem_bytes(rows: int, pw: int, L: int, ksize: int) -> int:
+    """Dynamic shared memory of one block for a tiling (csrc/chop.cu
+    Layout): two code buffers, two lengths buffers and the packed codes."""
+    span = rows * L if pw == L - ksize + 1 else pw + ksize + 1
+    raw = _round16(span + 15) + 16
+    return 2 * raw + 2 * _round16(4 * rows) + _round16(raw // 4 + 16)
+
+
+@functools.cache
+def tile_plan(L: int, ksize: int) -> tuple[int, int]:
+    """(rows, pw) of the kernel's tiles for rows of L codes.  pw = P: tile t
+    is rows [t * rows, (t + 1) * rows) (a multiple of 16 rows where 16 fit).
+    pw < P: rows too long for one block's shared memory; tile t is windows
+    [s * pw, (s + 1) * pw) of row t // S, s = t % S, S = ceil(P / pw)
+    segments a row (pw a multiple of 16)."""
+    P = L - ksize + 1
+    if P < 1:
+        raise ValueError(f"no windows: L={L}, k={ksize}")
+    rows = 0
+    while (rows < MAX_TILE_ROWS
+           and smem_bytes(rows + 1, P, L, ksize) <= SMEM_BUDGET):
+        rows += 1
+    if rows >= 16:
+        return rows // 16 * 16, P
+    if rows >= 1:
+        return rows, P
+    pw = 16
+    while smem_bytes(1, pw + 16, L, ksize) <= SMEM_BUDGET:
+        pw += 16
+    return 1, pw
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built on first use, its C signatures set once."""
+    from . import build
+    lib = build.load("chop")
+    lib.chop_launch.restype = ctypes.c_int
+    lib.chop_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.chop_smem_bytes.restype = ctypes.c_int
+    lib.chop_smem_bytes.argtypes = [ctypes.c_int] * 4
+    return lib
 
 
 def _check(codes: torch.Tensor, lengths: torch.Tensor, ksize: int) -> int:
@@ -56,8 +113,6 @@ def chop(codes: torch.Tensor, lengths: torch.Tensor, ksize: int,
     if not (codes.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("codes and lengths must be contiguous")
     N, L = codes.shape
-    if N >= 2 ** 31:
-        raise ValueError(f"{N} rows exceed the kernel's grid")
     kmers = torch.empty((N, P), dtype=torch.int64, device=codes.device)
     left = right = None
     if edges:
@@ -65,20 +120,13 @@ def chop(codes: torch.Tensor, lengths: torch.Tensor, ksize: int,
         right = torch.empty((N, P), dtype=torch.uint8, device=codes.device)
     if N == 0 or P == 0:
         return kmers, left, right
-    from . import build
-    fn = build.load("chop").chop_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    rows, pw = tile_plan(L, ksize)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(codes.data_ptr(), lengths.data_ptr(), N, L, ksize,
-                 kmers.data_ptr(),
-                 left.data_ptr() if edges else None,
-                 right.data_ptr() if edges else None,
-                 int(edges), stream)
+        err = _lib().chop_launch(
+            codes.data_ptr(), lengths.data_ptr(), N, L, ksize, rows, pw,
+            kmers.data_ptr(), left.data_ptr() if edges else None,
+            right.data_ptr() if edges else None, int(edges), stream)
     if err != 0:
         raise RuntimeError(f"chop kernel launch failed: CUDA error {err}")
     launches += 1
@@ -110,12 +158,12 @@ def chop_plain(codes: torch.Tensor, lengths: torch.Tensor, ksize: int,
     if not edges:
         return kmers, None, None
     four = torch.tensor(4, dtype=torch.int64, device=dev)
-    # left neighbour of window j is base j-1, right neighbour base j+k
-    lshift = torch.cat([torch.full((N, 1), 4, dtype=torch.int64, device=dev),
-                        c[:, :max(P - 1, 0)]], dim=1)[:, :P]
-    rshift = torch.cat([c[:, ksize:ksize + P],
-                        torch.full((N, P), 4, dtype=torch.int64, device=dev)],
-                       dim=1)[:, :P]
+    # left neighbour of window j is base j-1, right neighbour base j+k; a
+    # base past the row (a read longer than L) reads as code 0, as in
+    # graph._chop_with_edges
+    zeros = torch.zeros((N, 1), dtype=torch.int64, device=dev)
+    lshift = torch.cat([zeros, c[:, :max(P - 1, 0)]], dim=1)[:, :P]
+    rshift = torch.cat([c[:, ksize:ksize + P], zeros], dim=1)[:, :P]
     has_left = pos > 0
     has_right = pos < jlen - ksize
     left = torch.where(use_fwd, torch.where(has_left, lshift, four),
