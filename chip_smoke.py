@@ -55,7 +55,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      links, tips, low edges, bubbles, readout), with the chain resolution
      timed on the card (_succ_resolve) against the native host twins
      (succ_build + resolve_chains_host), their outputs compared, and the
-     host memory of collect_heads' scratch.
+     host memory of collect_heads' scratch;
+  11. (run right after phase 8) correction: ``correct_error_reads -k 17
+     -j 1`` on the library with phase 8's table, the torch engine on the
+     card, through cli.main: wall, peak device memory, reads a second,
+     chunks, waves, beam calls, trips, host reads and the reads re-run on
+     the host engine (fallback; the phase fails at a share >= 5 %); the
+     same files through ``--engine native`` (the shared C++ engine) must
+     give the same .correct.fa.gz (decompressed), .correct.stat,
+     .pair.fa.gz, .single.fa.gz and .pair.single.stat bytes.  Then the
+     same for a harder library (25 000 pairs at 1 % errors, no share
+     limit).  With ``--profile``, the run once more under torch.profiler
+     and the device engine alone at several chunk widths.
 Bounds (bound_ms) are the larger of the bytes each kernel must move (each
 input read once, each output written once) over the published 3.35 TB/s
 and its operations over 67 T a second (the published float32 rate outside
@@ -498,16 +509,29 @@ def _n50(lens: np.ndarray) -> int:
     return int(s[np.searchsorted(np.cumsum(s), s.sum() / 2)]) if len(s) else 0
 
 
-def _phase_wall(name: str, fn):
+def _phase_wall(name: str, fn) -> float:
+    """Run fn with the card synchronised around it; log and return its
+    wall (s), and log its peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    out = fn()
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     _log(f"{name}: wall {wall:.3f} s, peak device memory {peak} B "
          f"({peak / 2**30:.3f} GiB)")
+    return wall
+
+
+def _step(steps: list, name: str, fn):
+    """Run fn with the card synchronised around it, append (name, seconds)
+    to steps and return fn's result."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    steps.append((name, time.perf_counter() - t))
     return out
 
 
@@ -555,20 +579,171 @@ def phase_slice(workdir: str, lib: str, kernels: dict) -> tuple:
     return totals, prefix, dprefix
 
 
-def phase_profile(workdir: str, lib: str) -> None:
-    """``--profile``: each stage of phase 8 once more under torch.profiler:
-    wall, device busy time (the sum of every device item's self time), the
-    idle share, the chop's and the sort's device time and the largest
-    device items."""
+# ---------------------------------------------------------------- phase 11
+CORRECT_SUFFIXES = (".correct.fa.gz", ".correct.stat")
+PAIR_SUFFIXES = (".correct.fa.gz.pair.fa.gz", ".correct.fa.gz.single.fa.gz",
+                 ".correct.fa.gz.pair.single.stat")
+
+
+def _digest(path: str) -> str:
+    """sha256 of a file's bytes, decompressed for a .gz file."""
+    import gzip
+    import hashlib
+    with (gzip.open(path, "rb") if path.endswith(".gz") else
+          open(path, "rb")) as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _mirror(files: list[str], where: str) -> tuple[str, list[str]]:
+    """A .lib of symlinks to ``files`` in ``where``, so that a second
+    engine writes its outputs beside its own names."""
+    os.makedirs(where, exist_ok=True)
+    links = []
+    for f in files:
+        links.append(os.path.join(where, os.path.basename(f)))
+        os.symlink(f, links[-1])
+    lib = os.path.join(where, "reads.lib")
+    with open(lib, "w") as f:
+        f.write("".join(p + "\n" for p in links))
+    return lib, links
+
+
+def _correct_outputs(files: list[str]) -> dict:
+    out = {}
+    for i, f in enumerate(files):
+        sufs = CORRECT_SUFFIXES + (PAIR_SUFFIXES if i % 2 == 0 else ())
+        for suf in sufs:
+            out[os.path.basename(f) + suf] = _digest(f + suf)
+    return out
+
+
+def phase_correct(workdir: str, cz: str, name: str, files: list[str],
+                  n_reads: int, kernels: dict,
+                  max_share: float | None) -> list[str]:
+    """``correct_error_reads -k 17 -j 1`` with the torch engine on the card
+    through cli.main, then the same files through ``--engine native`` (the
+    shared C++ engine); every output's (decompressed) bytes must be equal,
+    and the share of reads re-run on the host engine below max_share.
+    Returns the torch engine's input names (its outputs sit beside them)."""
+    from dbg_assembly_tpu_torch import cli
+    from dbg_assembly_tpu_torch.correct import device as cdev
+    from dbg_assembly_tpu_torch.correct import pipeline
+    lib, files = _mirror(files, os.path.join(workdir, name, "torch"))
+    nlib, nfiles = _mirror(files, os.path.join(workdir, name, "native"))
+    argv = ["correct_error_reads", "-k", "17", "-j", "1", cz]
+    for mod in kernels.values():
+        mod.launches = 0
+    cdev.reset_counts()
+    title = f"correct_error_reads -k 17 -j 1 ({name}, torch engine)"
+    wall = _phase_wall(title, lambda: cli.main(argv + [lib, "--device",
+                                                       "cuda"]))
+    c = dict(cdev.counts)
+    share = c["fallback"] / n_reads
+    _log(f"{title}: {n_reads} reads, {n_reads / wall:.1f} reads/s; "
+         f"{c['batches']} chunks of up to {pipeline.DEFAULT_CHUNK} reads, "
+         f"{c['waves']} waves, {c['bbt_calls']} beam calls, {c['trips']} "
+         f"trips, {c['host_reads']} host reads; fallback {c['fallback']} "
+         f"reads, share {share:.6f}; kernel launches "
+         f"{ {n: m.launches for n, m in kernels.items()} } (none on this "
+         "path)")
+    _phase_wall(f"correct_error_reads -k 17 -j 1 ({name}, native engine)",
+                lambda: cli.main(argv + ["--engine", "native", nlib]))
+    got, want = _correct_outputs(files), _correct_outputs(nfiles)
+    if got != want:
+        bad = [k for k in want if got.get(k) != want[k]]
+        raise AssertionError(f"{name}: torch engine outputs != native "
+                             f"engine's: {bad}")
+    _log(f"{name}: torch engine == native engine on {len(want)} outputs "
+         f"({', '.join(sorted(want))})")
+    if max_share is not None and share >= max_share:
+        raise AssertionError(f"{name}: fallback share {share:.6f} >= "
+                             f"{max_share}")
+    return files
+
+
+def make_hard_library(workdir: str) -> tuple[list[str], int]:
+    """25 000 pairs from the same genome at 1 % errors, another seed."""
+    from tools.simulate_reads import make_genome, simulate_pe
+    genome = make_genome(GENOME_LEN, seed=42)
+    depth = 25_000.5 * 2 * READ_LEN / GENOME_LEN
+    r1, q1, r2, q2 = simulate_pe(genome, READ_LEN, 400, depth, seed=44,
+                                 err_start=0.01, err_end=0.01)
+    d = os.path.join(workdir, "hard_src")
+    os.makedirs(d)
+    files = []
+    for mate, (r, q) in enumerate(((r1, q1), (r2, q2)), start=1):
+        files.append(os.path.join(d, f"hard_{mate}.fq"))
+        _write_fastq(files[-1], mate, r, q)
+    return files, 2 * len(r1)
+
+
+def phase_correct_steps(cz: str, files: list[str]) -> None:
+    """``--profile``: the correction stage step by step on the torch
+    engine's files of phase 11 (host clock, the card synchronised after
+    each step), and the device engine alone on the first file at several
+    chunk widths (the measurement behind pipeline.DEFAULT_CHUNK)."""
+    from dbg_assembly_tpu_torch.correct import device as cdev
+    from dbg_assembly_tpu_torch.correct import pipeline
+    from dbg_assembly_tpu_torch.correct.engine import CorrectParams
+    from dbg_assembly_tpu_torch.io import fastq
+    from dbg_assembly_tpu_torch.utils.helpers import merge_corrected_pair
+    p = CorrectParams(ksize=17)
+    steps = []
+
+    def step(name, fn):
+        return _step(steps, name, fn)
+
+    bitmap = step("load table", lambda: pipeline.load_bitmap(cz, 17))
+    words = step("table to the card", lambda: cdev.bitmap_device(bitmap,
+                                                                 "cuda"))
+    batch = step("parse file 1", lambda: fastq.read_batch(
+        files[0], keep_heads=True, keep_ascii=True))
+    step("device engine file 1", lambda: pipeline.correct_batch_torch(
+        batch, bitmap, p, words=words))
+    step("correct_file file 1 (parse, engine, format, write)",
+         lambda: pipeline.correct_file(files[0], bitmap, p, words=words))
+    step("merge_corrected_pair", lambda: merge_corrected_pair(
+        files[0] + ".correct.fa.gz", files[1] + ".correct.fa.gz"))
+    _log("correction by step (s): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in steps))
+    for chunk in (16_384, 65_536, 262_144, batch.n_reads):
+        cdev.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        pipeline.correct_batch_torch(batch, bitmap, p, words=words,
+                                     chunk=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        c = cdev.counts
+        _log(f"chunk {chunk}: device engine + host fallback on "
+             f"{batch.n_reads} reads {wall:.3f} s "
+             f"({batch.n_reads / wall:.1f} reads/s), peak device memory "
+             f"{torch.cuda.max_memory_allocated()} B, {c['batches']} "
+             f"chunks, {c['trips']} trips, {c['host_reads']} host reads, "
+             f"fallback {c['fallback']}")
+    del words
+    torch.cuda.empty_cache()
+
+
+def phase_profile(workdir: str, lib: str, cz: str, files: list[str]) -> None:
+    """``--profile``: each stage of phases 8 and 11 once more under
+    torch.profiler: wall, device busy time (the sum of every device item's
+    self time), the idle share, the chop's and the sort's device time and
+    the largest device items."""
     from torch.profiler import ProfilerActivity, profile
     from dbg_assembly_tpu_torch import cli
     contig = ["debruijn_contig", "-k", "31", "-i", "0.02", "-M", "125"]
-    runs = [("kmerfreq -k 17 -m 1", ["kmerfreq", "-k", "17", "-m", "1"]),
+    clib, _ = _mirror(files, os.path.join(workdir, "prof_correct"))
+    runs = [("kmerfreq -k 17 -m 1",
+             ["kmerfreq", "-k", "17", "-m", "1", lib]),
             ("debruijn_contig (exact)",
-             contig + ["-o", os.path.join(workdir, "prof")]),
+             contig + ["-o", os.path.join(workdir, "prof"), lib]),
             ("debruijn_contig --readout doubling",
              contig + ["--readout", "doubling", "-o",
-                       os.path.join(workdir, "prof_doubling")])]
+                       os.path.join(workdir, "prof_doubling"), lib]),
+            ("correct_error_reads -k 17 -j 1",
+             ["correct_error_reads", "-k", "17", "-j", "1", cz, clib])]
     for title, argv in runs:
         torch.cuda.synchronize()
         with open(os.devnull, "w") as null, \
@@ -576,7 +751,7 @@ def phase_profile(workdir: str, lib: str) -> None:
                 profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            cli.main(argv + [lib, "--device", "cuda"])
+            cli.main(argv + ["--device", "cuda"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         # device-side items only (kernels, copies, sets): a CPU op's self
@@ -744,12 +919,7 @@ def phase_doubling_steps(table, workdir: str) -> None:
     steps = []
 
     def step(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        steps.append((name, time.perf_counter() - t))
-        return out
+        return _step(steps, name, fn)
 
     g = step("graph set-up", lambda: pd._Graph(table, params, "cuda"))
     step("links", g.calc_links)
@@ -858,10 +1028,16 @@ def main() -> int:
         _log(f"library: {n_reads} reads of {READ_LEN} bp, genome "
              f"{GENOME_LEN}, {DEPTH}x, {time.perf_counter() - t:.1f} s")
         sort_rec = phase_sort(srt, chop, files)
-        launches, prefix, dprefix = phase_slice(
-            workdir, lib, {"chop": chop, "radix_sort": srt})
+        kernels = {"chop": chop, "radix_sort": srt}
+        launches, prefix, dprefix = phase_slice(workdir, lib, kernels)
+        cz = lib + ".kmer.freq.cz"
+        cfiles = phase_correct(workdir, cz, "ecoli", files, n_reads,
+                               kernels, 0.05)
+        hard_files, hard_n = make_hard_library(workdir)
+        phase_correct(workdir, cz, "hard", hard_files, hard_n, kernels, None)
         if "--profile" in sys.argv[1:]:
-            phase_profile(workdir, lib)
+            phase_profile(workdir, lib, cz, files)
+            phase_correct_steps(cz, cfiles)
         phase_doubling_oracle(workdir, prefix, dprefix)
         table = phase_oracle(files, lib)
         phase_doubling_steps(table, workdir)

@@ -1,13 +1,17 @@
 """Command line: the reference binaries' flags, plus --device.
 
     python -m dbg_assembly_tpu_torch kmerfreq -k 17 -m 1 reads.lib
+    python -m dbg_assembly_tpu_torch correct_error_reads -k 17 freq.cz reads.lib
+    python -m dbg_assembly_tpu_torch correct_error -k 17 freq8.cz reads.lib
     python -m dbg_assembly_tpu_torch debruijn_contig -k 31 -o prefix reads.lib
     python -m dbg_assembly_tpu_torch debruijn_contig --readout doubling ...
 
 Flag letters match dbg_assembly_tpu's cli (kmerfreq as the workflow runs it,
-test/01.clean_correct/work.sh:31; debruijn_contig as DBG_contig/main.cpp:
+test/01.clean_correct/work.sh:31; correct_error_reads as
+main_parallel_senior.cpp:142-163; debruijn_contig as DBG_contig/main.cpp:
 162-196).  --device cuda (the default) runs on the GPU and fails when
-there is none; --device cpu runs the kernels' plain PyTorch versions.
+there is none; --device cpu runs the kernels' plain PyTorch versions and
+the device programs on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import sys
 
 def _device_flag(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the chop, sort and segment reductions run")
+                    help="where the chop, sort, segment reductions and "
+                    "device programs run")
 
 
 def _kmerfreq(argv):
@@ -40,6 +45,67 @@ def _kmerfreq(argv):
     return kmerfreq.run(a.lib, ksize=a.k, low_freq_cutoff=a.m,
                         fmt="fq" if a.f == 1 else "fa", qual_cutoff=a.q,
                         qual_shift=a.qshift, device=a.device)
+
+
+def _correct(argv):
+    ap = argparse.ArgumentParser(prog="correct_error_reads")
+    ap.add_argument("-k", type=int, default=17)
+    ap.add_argument("-m", type=int, default=0)
+    ap.add_argument("-c", type=int, default=2)
+    ap.add_argument("-x", type=int, default=0)
+    ap.add_argument("-n", type=int, default=5_000_000)
+    ap.add_argument("-r", type=int, default=75)
+    ap.add_argument("-t", type=int, default=10)
+    ap.add_argument("-f", type=int, default=1)
+    ap.add_argument("-j", type=int, default=0)
+    ap.add_argument("--engine", choices=("auto", "torch", "native", "python"),
+                    default="auto",
+                    help="correction engine: auto = torch, the device "
+                    "engine on --device; native = the shared C++ engine; "
+                    "python = the host engine")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="sharded corrector over N devices (not ported "
+                    "yet)")
+    _device_flag(ap)
+    ap.add_argument("cz")
+    ap.add_argument("lib")
+    a = ap.parse_args(argv)
+    from .correct import pipeline
+    from .correct.engine import CorrectParams
+    params = CorrectParams(ksize=a.k, high_freq_reg_len=a.m, max_change=a.c,
+                           further_trim=a.x, max_bbt_nodes=a.n,
+                           min_read_len=a.r)
+    out = pipeline.run(a.cz, a.lib, params, fmt=a.f, engine=a.engine,
+                       device=a.device, mesh_devices=a.mesh)
+    if a.j == 1:
+        from .contig.pipeline import read_file_list
+        from .utils.helpers import merge_corrected_pair
+        files = read_file_list(a.lib)
+        for i in range(0, len(files), 2):
+            merge_corrected_pair(files[i] + ".correct.fa.gz",
+                                 files[i + 1] + ".correct.fa.gz")
+    return out
+
+
+def _correct_8bit(argv):
+    ap = argparse.ArgumentParser(prog="correct_error")
+    ap.add_argument("-k", type=int, default=17)
+    ap.add_argument("-l", type=int, default=10)
+    ap.add_argument("-m", type=int, default=0)
+    ap.add_argument("-c", type=int, default=2)
+    ap.add_argument("-x", type=int, default=0)
+    ap.add_argument("-n", type=int, default=15_000_000)
+    ap.add_argument("-r", type=int, default=50)
+    ap.add_argument("-f", type=int, default=1)
+    ap.add_argument("-j", type=int, default=1)
+    ap.add_argument("cz")
+    ap.add_argument("lib")
+    a = ap.parse_args(argv)
+    from .correct import pipeline
+    return pipeline.run_8bit(a.cz, a.lib, ksize=a.k, low_freq_cutoff=a.l,
+                             max_change=a.c, high_freq_reg_len=a.m,
+                             further_trim=a.x, min_read_len=a.r,
+                             max_bbt_nodes=a.n, fmt=a.f, join=(a.j == 1))
 
 
 def _debruijn_contig(argv):
@@ -95,6 +161,8 @@ def _debruijn_contig(argv):
 
 COMMANDS = {
     "kmerfreq": _kmerfreq,
+    "correct_error_reads": _correct,
+    "correct_error": _correct_8bit,
     "debruijn_contig": _debruijn_contig,
 }
 

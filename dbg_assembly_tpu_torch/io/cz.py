@@ -1,10 +1,13 @@
-""".cz / .cz.len 1-bit k-mer frequency table (counterpart of the writer in
+""".cz / .cz.len k-mer frequency tables (counterpart of
 dbg_assembly_tpu/io/cz.py).
 
-A dense bit array over all 4^k k-mer indices, bit (7 - idx%8) of byte idx/8
-set iff the canonical k-mer idx is above the low-frequency cutoff,
-zlib-compressed in source blocks of 8M k-mers = 1 MiB, plus a text file of
-each compressed block's byte size (main_parallel_senior.cpp:71,285-295).
+The 1-bit table is a dense bit array over all 4^k k-mer indices, bit
+(7 - idx%8) of byte idx/8 set iff the canonical k-mer idx is above the
+low-frequency cutoff, zlib-compressed in source blocks of 8M k-mers = 1 MiB,
+plus a text file of each compressed block's byte size
+(main_parallel_senior.cpp:71,285-295).  The 8-bit table holds one saturated
+count a k-mer in source blocks of 8 MiB (correct_error/main.cpp:48,190-215);
+the port reads it only.
 """
 
 from __future__ import annotations
@@ -29,3 +32,30 @@ def write_cz_bits(path: str, bitmap: np.ndarray) -> None:
     with open(path + ".len", "w") as f:
         for s in sizes:
             f.write(f"{s}\n")
+
+
+def _read_blocks(path: str, out: np.ndarray, block_bytes: int) -> np.ndarray:
+    """Inflate each block listed in ``path``.len into ``out`` at
+    block_bytes strides."""
+    with open(path + ".len") as f:
+        sizes = [int(x) for x in f.read().split()]
+    off = 0
+    with open(path, "rb") as f:
+        for s in sizes:
+            raw = zlib.decompress(f.read(s))
+            out[off:off + len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+            off += block_bytes
+    return out
+
+
+def read_cz_bits(path: str, ksize: int) -> np.ndarray:
+    """The 1-bit table as 4^k/8 bytes (main_parallel_senior.cpp:285-295)."""
+    return _read_blocks(path, np.zeros((1 << (2 * ksize)) // 8, np.uint8),
+                        SRC_BLOCK_KMERS // 8)
+
+
+def read_cz_bytes(path: str, ksize: int) -> np.ndarray:
+    """The 8-bit table, one count a k-mer saturated at 255, in source
+    blocks of 8 MiB (correct_error/main.cpp:48,190-215)."""
+    return _read_blocks(path, np.zeros(1 << (2 * ksize), np.uint8),
+                        SRC_BLOCK_KMERS)

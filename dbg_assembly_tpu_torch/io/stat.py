@@ -1,5 +1,6 @@
 """.stat files and C++ number formatting (counterpart of the parts of
-dbg_assembly_tpu/io/stat.py that counting and the contig stage use):
+dbg_assembly_tpu/io/stat.py that counting, correction and the contig stage
+use):
 ``ostream << double`` prints with precision 6, as printf("%g");
 ``boost::lexical_cast<std::string>(double)`` round-trips with 17 digits, as
 printf("%.17g") (the contig headers' avgDepth, contig.cpp:1006).
@@ -16,6 +17,33 @@ def fmt_g6(x: float) -> str:
 def fmt_lexical(x: float) -> str:
     """Format like boost::lexical_cast<string>(double) (printf %.17g)."""
     return "%.17g" % x
+
+
+def write_correct_stat(path: str, raw_reads: int, raw_bases: int,
+                       res_reads: int, res_bases: int,
+                       trimmed_reads: int, trimmed_bases: int,
+                       deleted_reads: int, fast_score: int,
+                       bbt_score: int) -> None:
+    """correct_error_reads' .correct.stat (main_parallel_senior.cpp:
+    661-675)."""
+    all_score = fast_score + bbt_score
+    filt = (raw_bases - res_bases) / raw_bases if raw_bases else float("nan")
+    corr = all_score / res_bases if res_bases else float("nan")
+    with open(path, "w") as f:
+        f.write(f"num_raw_reads {raw_reads}\n")
+        f.write(f"num_raw_bases {raw_bases}\n")
+        f.write(f"num_result_reads {res_reads}\n")
+        f.write(f"num_result_bases {res_bases}\n")
+        f.write(f"\nnum_trimmed_reads {trimmed_reads}\n")
+        f.write(f"num_trimmed_bases {trimmed_bases}\n")
+        f.write(f"num_deleted_reads {deleted_reads}\n")
+        f.write(f"\nnum_corrected_bases_by_Fast_method {fast_score}\n")
+        f.write(f"num_corrected_bases_by_BBtree_method {bbt_score}\n")
+        f.write(f"num_corrected_bases_by_two_methods {all_score}\n")
+        f.write("\nfilter_ratio: (num_raw_bases - num_res_bases) / "
+                f"num_raw_bases {fmt_g6(filt)}\n")
+        f.write("correct_ratio: total_all_base_correct_score / "
+                f"num_res_bases {fmt_g6(corr)}\n")
 
 
 def write_kmerfreq_stat(path: str, ksize: int, max_freq: int,

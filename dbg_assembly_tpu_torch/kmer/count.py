@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import dna, resolve_device
 from ..ops import sort as radix
 from ..ops.chop import SENTINEL, chop
 
@@ -145,6 +145,30 @@ def freq_bitmap(unique: np.ndarray, counts: np.ndarray, ksize: int,
     np.bitwise_or.at(bitmap, (hi // 8).astype(np.int64),
                      (np.uint8(1) << (7 - (hi % 8)).astype(np.uint8)))
     return bitmap
+
+
+def expand_bitmap_rc(bitmap: np.ndarray, ksize: int) -> np.ndarray:
+    """OR the reverse-complement bits into a copy of the table (the
+    consumer-side step, main_parallel_senior.cpp:310-329).  Host numpy,
+    over the nonzero bytes only: the table is sparse, so they are found
+    from its nonzero 64-bit words (4^k/8 bytes, a multiple of 8 for k >= 2)
+    rather than by a scan of every byte."""
+    if bitmap.size % 8 == 0:
+        nzw = np.flatnonzero(bitmap.view(np.uint64))
+        sub = np.flatnonzero(bitmap.reshape(-1, 8)[nzw])      # ascending
+        nz = nzw[sub // 8] * 8 + sub % 8
+    else:
+        nz = np.flatnonzero(bitmap)
+    if len(nz) == 0:
+        return bitmap.copy()
+    bits = np.unpackbits(bitmap[nz][:, None], axis=1)       # [n, 8] MSB-first
+    rows, cols = np.nonzero(bits)
+    idx = (nz[rows].astype(np.uint64) << np.uint64(3)) + cols.astype(np.uint64)
+    rc = dna.revcomp_kbit(idx, ksize)
+    out = bitmap.copy()
+    np.bitwise_or.at(out, (rc // 8).astype(np.int64),
+                     (np.uint8(1) << (7 - (rc % 8)).astype(np.uint8)))
+    return out
 
 
 def bitmap_get(bitmap: np.ndarray, idx) -> np.ndarray:

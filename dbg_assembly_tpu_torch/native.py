@@ -2,11 +2,12 @@
 
 The same library as the JAX package's loader (dbg_assembly_tpu/native.py):
 native/build/libdbg_native.so, built on first use with ``make -C native``
-(g++).  This copy binds the entry points the port's slice calls: the FASTQ
+(g++).  This copy binds the entry points the port's slices call: the FASTQ
 parser, the streaming ingest table (the smoke test's oracle), the hash-layout
-emulation, the exact contig readout engine, and the host passes of the
+emulation, the exact contig readout engine, the host passes of the
 doubling readout (links, slot ranks, chain heads, seed argmin, the GCC 4.4
-length sort) with the host twins of its device chain resolution.
+length sort) with the host twins of its device chain resolution, and the
+batch error corrector (``correct_error_reads --engine native``).
 """
 
 from __future__ import annotations
@@ -113,6 +114,11 @@ def _build_and_load() -> ctypes.CDLL:
                               _i32p, _i32p, _i32p, _i32p, _i64p]
     lo.gcc44_sort_perm_desc.restype = None
     lo.gcc44_sort_perm_desc.argtypes = [_u64p, ctypes.c_int64, _i64p]
+    lo.correct_batch.restype = None
+    lo.correct_batch.argtypes = [
+        _u8p, _i64p, _i32p, ctypes.c_int64, _u8p, ctypes.c_int64, _u8p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int, _i32p, _i32p, _i32p, _i32p, _i32p]
     return lo
 
 
@@ -170,10 +176,12 @@ class NativeIngest:
             pass
 
 
-def fastq_parse(data: bytes, fq: bool):
+def fastq_parse(data: bytes, fq: bool, strict_n: bool = False,
+                max_len: int | None = None, keep_ascii: bool = False):
     """Parse a decompressed one-line FASTQ/FASTA buffer into padded arrays
-    in the k-mer alphabet, N -> 0 (native/fastq_engine.cpp).  Returns
-    (codes, quals, lengths); FASTA quals are zeros."""
+    (native/fastq_engine.cpp): codes in the k-mer alphabet (N -> 0, or 4
+    with ``strict_n``), rows cut at ``max_len``.  Returns (codes, quals,
+    lengths, head_off, head_len, ascii or None); FASTA quals are zeros."""
     buf = np.frombuffer(data, np.uint8)
     p = buf.ctypes.data_as(_u8p)
     n_rec = ctypes.c_int64()
@@ -181,20 +189,58 @@ def fastq_parse(data: bytes, fq: bool):
     lib().fastq_scan(p, ctypes.c_int64(len(buf)), ctypes.c_int(int(fq)),
                      ctypes.byref(n_rec), ctypes.byref(mx))
     n, Lmax = n_rec.value, mx.value
+    if max_len is not None:
+        Lmax = min(Lmax, max_len)
     codes = np.empty((n, Lmax), np.uint8)
     quals = np.empty((n, Lmax), np.uint8) if fq else np.zeros(
         (n, Lmax), np.uint8)
+    aarr = np.empty((n, Lmax), np.uint8) if keep_ascii else None
     lengths = np.empty(n, np.int32)
-    hoff = np.empty(n, np.int64)     # header spans: the parser fills them
+    hoff = np.empty(n, np.int64)
     hlen = np.empty(n, np.int64)
     lib().fastq_fill(
         p, ctypes.c_int64(len(buf)), ctypes.c_int(int(fq)),
-        ctypes.c_int64(Lmax), ctypes.c_int(0),
+        ctypes.c_int64(Lmax), ctypes.c_int(int(strict_n)),
         codes.ctypes.data_as(_u8p),
-        quals.ctypes.data_as(_u8p) if fq else None, None,
+        quals.ctypes.data_as(_u8p) if fq else None,
+        aarr.ctypes.data_as(_u8p) if aarr is not None else None,
         lengths.ctypes.data_as(_i32p), hoff.ctypes.data_as(_i64p),
         hlen.ctypes.data_as(_i64p))
-    return codes, quals, lengths
+    return codes, quals, lengths, hoff, hlen, aarr
+
+
+def correct_batch(reads: np.ndarray, offsets: np.ndarray, lens: np.ndarray,
+                  bits: np.ndarray, bitmap: np.ndarray, params) -> tuple:
+    """Native 5-phase correction of a read batch IN PLACE
+    (native/correct_engine.cpp, the same recipe as correct.engine's
+    ReadCorrector).  reads: uint8 concatenated read bytes, modified in
+    place; offsets/lens per read; bits: [n, P] phase-1 flags (uint8, row
+    stride bits.shape[1]); params: resolved CorrectParams.  Returns
+    (one_score, multi_score, deleted, trim_left, trim_right) int32."""
+    if reads.dtype != np.uint8 or not reads.flags.c_contiguous:
+        raise ValueError("reads must be a contiguous uint8 array (it is "
+                         "corrected in place)")
+    n = len(lens)
+    off = np.ascontiguousarray(offsets, np.int64)
+    ln = np.ascontiguousarray(lens, np.int32)
+    bt = np.ascontiguousarray(bits, np.uint8)
+    bm = np.ascontiguousarray(bitmap, np.uint8)
+    if len(off) != n or (n and bt.shape[0] != n):
+        raise ValueError(f"{n} reads but {len(off)} offsets and "
+                         f"{bt.shape[0]} rows of bits")
+    outs = [np.zeros(n, np.int32) for _ in range(5)]
+    lib().correct_batch(
+        reads.ctypes.data_as(_u8p), off.ctypes.data_as(_i64p),
+        ln.ctypes.data_as(_i32p), ctypes.c_int64(n),
+        bt.ctypes.data_as(_u8p),
+        ctypes.c_int64(bt.shape[1] if bt.ndim == 2 else 0),
+        bm.ctypes.data_as(_u8p), ctypes.c_int(params.ksize),
+        ctypes.c_int(params.high_freq_reg_len),
+        ctypes.c_int(params.max_change), ctypes.c_int(params.further_trim),
+        ctypes.c_int64(params.max_bbt_nodes),
+        ctypes.c_int(params.min_read_len),
+        *(o.ctypes.data_as(_i32p) for o in outs))
+    return tuple(outs)
 
 
 def jenkins64(x) -> np.ndarray:

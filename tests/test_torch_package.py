@@ -56,10 +56,15 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
     from dbg_assembly_tpu_torch.kmer.count import KmerCounter
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cz, lib = str(tmp_path / "x.cz"), str(tmp_path / "x.lib")
     for make in (lambda: resolve_device("cuda"),
                  lambda: KmerCounter(17, device="cuda"),
                  lambda: GraphBuilder(31, device="cuda"),
-                 lambda: cli.main(["kmerfreq", str(tmp_path / "x.lib")])):
+                 lambda: cli.main(["kmerfreq", str(tmp_path / "x.lib")]),
+                 lambda: cli.main(["correct_error_reads", "--device", "cuda",
+                                   cz, lib]),
+                 lambda: cli.main(["correct_error_reads", "--engine", "torch",
+                                   cz, lib])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
