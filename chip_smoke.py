@@ -67,6 +67,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
      same for a harder library (25 000 pairs at 1 % errors, no share
      limit).  With ``--profile``, the run once more under torch.profiler
      and the device engine alone at several chunk widths.
+  12. (run after phase 11) cleaning: phase 6's library copied and soiled
+     (``tools/soil.py``: the mate's default adapter over a suffix in 10 % of reads,
+     a Phred 2 tail in 10 %, an N in 0.5 %); ``clean_lowqual -e 0.01 -r
+     75``, then ``clean_adapter -r 75`` on its output, both files on the
+     card through cli.main (at -e 0.001 every read of this library, whose
+     qualities are Phred 30 +- 3 with a mean error of 0.0013, is cut below
+     75 bases, and clean_adapter's .stat then divides by zero bases, as
+     the JAX package's does): wall, reads a second, peak device memory, the
+     host loop's steps, reads trimmed and dropped.  Oracle: the first
+     40 000 reads of each file through both stages with ``--device cpu``
+     and on the card, the decompressed .gz and the .stat bytes equal; and
+     torch.argmax on the card returns the first of tied maxima, as the
+     adapter DP needs;
+  13. mapping and scaffolding: ``map_pair -k 31 -s 5 -l 125 -r 100 -i 0.97``
+     of phase 6's files against phase 8's exact ``.contig.seq.fa``, then
+     ``link_scaffold -i 400 -n 3`` on its .2ctg file, with ``--engine
+     torch`` on the card and with ``--engine native`` (the shared C++
+     mapper): every map file (decompressed), the .map_pair.stat and every
+     scaffold file equal; the radix sort's launches > 0 in the torch run;
+     wall per command, peak device memory, pairs a second, the mapped
+     share, scaffold count and N50.  Then the index of those contigs built
+     on the card and on the CPU (``sort_plain``): its k-mers, contigs,
+     positions, strands and uniqueness exactly equal; and the radix sort
+     at the index's shape (its canonical keys, 62 bits, with the index)
+     equal to ``sort_plain`` and timed beside it and ``torch.sort``, as in
+     phase 7.  ``--profile`` runs the three commands of phases 12 and 13
+     once more under torch.profiler, and then step by step (parse, device
+     work, whole stage).
 Bounds (bound_ms) are the larger of the bytes each kernel must move (each
 input read once, each output written once) over the published 3.35 TB/s
 and its operations over 67 T a second (the published float32 rate outside
@@ -468,25 +496,32 @@ def phase_sort(srt, chop, files: list[str]) -> dict:
     del c
     shapes.append(("merge", torch.cat(parts), 62, True))
     del parts
-    rec = {}
+    rec = {"max_abs_err": err}
     for name, keys, bits, index in shapes:
-        err = max(err, _sort_check(srt, keys, bits, index, name))
-        what = (f"sort {name}: {keys.shape[0]} keys, key_bits {bits}, "
-                f"index {index}")
-        ms, plain_ms = _turns(what, lambda: srt.sort(keys, bits, index),
-                              lambda: srt.sort_plain(keys, bits, index))
-        library_ms = _cuda_ms(lambda: torch.sort(keys, stable=True))
-        _log(f"{what}: torch.sort(keys, stable=True) {library_ms:.4f} ms")
-        # bytes: the keys read once and written once, the index written
-        bound_ms, bound_by = _bound(keys.shape[0] * (16 + 8 * index))
-        suf = "" if name == "count" else "_" + name
-        rec.update({"ms" + suf: ms, "plain_ms" + suf: plain_ms,
-                    "bound_ms" + suf: bound_ms, "bound_by" + suf: bound_by,
-                    "library_ms" + suf: library_ms,
-                    "n" + suf: keys.shape[0]})
-    rec["max_abs_err"] = err
+        _sort_shape(srt, rec, name, keys, bits, index)
     torch.cuda.empty_cache()
     return rec
+
+
+def _sort_shape(srt, rec: dict, name: str, keys: torch.Tensor, bits: int,
+                index: bool) -> None:
+    """The radix sort at one main-path shape: == sort_plain, then timed
+    beside it and torch.sort; the numbers go into ``rec`` under the
+    shape's suffix."""
+    err = _sort_check(srt, keys, bits, index, name)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    what = (f"sort {name}: {keys.shape[0]} keys, key_bits {bits}, "
+            f"index {index}")
+    ms, plain_ms = _turns(what, lambda: srt.sort(keys, bits, index),
+                          lambda: srt.sort_plain(keys, bits, index))
+    library_ms = _cuda_ms(lambda: torch.sort(keys, stable=True))
+    _log(f"{what}: torch.sort(keys, stable=True) {library_ms:.4f} ms")
+    # bytes: the keys read once and written once, the index written
+    bound_ms, bound_by = _bound(keys.shape[0] * (16 + 8 * index))
+    suf = "" if name == "count" else "_" + name
+    rec.update({"ms" + suf: ms, "plain_ms" + suf: plain_ms,
+                "bound_ms" + suf: bound_ms, "bound_by" + suf: bound_by,
+                "library_ms" + suf: library_ms, "n" + suf: keys.shape[0]})
 
 
 def _fasta_lengths(path: str) -> np.ndarray:
@@ -726,11 +761,12 @@ def phase_correct_steps(cz: str, files: list[str]) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_profile(workdir: str, lib: str, cz: str, files: list[str]) -> None:
-    """``--profile``: each stage of phases 8 and 11 once more under
-    torch.profiler: wall, device busy time (the sum of every device item's
-    self time), the idle share, the chop's and the sort's device time and
-    the largest device items."""
+def phase_profile(workdir: str, lib: str, cz: str, files: list[str],
+                  extra: list) -> None:
+    """``--profile``: each stage of phases 8 and 11, and the (title, argv)
+    runs of ``extra``, once more under torch.profiler: wall, device busy
+    time (the sum of every device item's self time), the idle share, the
+    chop's and the sort's device time and the largest device items."""
     from torch.profiler import ProfilerActivity, profile
     from dbg_assembly_tpu_torch import cli
     contig = ["debruijn_contig", "-k", "31", "-i", "0.02", "-M", "125"]
@@ -743,7 +779,8 @@ def phase_profile(workdir: str, lib: str, cz: str, files: list[str]) -> None:
              contig + ["--readout", "doubling", "-o",
                        os.path.join(workdir, "prof_doubling"), lib]),
             ("correct_error_reads -k 17 -j 1",
-             ["correct_error_reads", "-k", "17", "-j", "1", cz, clib])]
+             ["correct_error_reads", "-k", "17", "-j", "1", cz, clib]),
+            *extra]
     for title, argv in runs:
         torch.cuda.synchronize()
         with open(os.devnull, "w") as null, \
@@ -777,6 +814,247 @@ def phase_profile(workdir: str, lib: str, cz: str, files: list[str]) -> None:
              f"{chop_ms:.3f} ms ({chop_n} launches), radix sort "
              f"{sort_ms:.3f} ms ({sort_n} kernel launches); top: " + "; ".join(
                  f"{key[:60]} {ms:.3f} ms x{n}" for ms, n, key in items[:8]))
+
+
+# ---------------------------------------------------------------- phase 12
+CLEAN_ORACLE_READS = 40_000
+
+
+def _stat_numbers(path: str) -> dict:
+    """The integer fields of a .stat file, by name."""
+    with open(path) as f:
+        return {m.group(1): int(m.group(2)) for m in re.finditer(
+            r"^[#\t]*(\w+):\s+(\d+)", f.read(), re.M)}
+
+
+def make_soiled(workdir: str, files: list[str]) -> tuple[list[str], int]:
+    """Phase 6's files, soiled (``tools/soil.py``), in workdir; and their
+    reads."""
+    from dbg_assembly_tpu_torch.io import fastq
+    from dbg_assembly_tpu_torch.tools import soil
+    out, n = [], 0
+    for mate, path in enumerate(files, start=1):
+        b = fastq.read_batch(path, keep_ascii=True)
+        reads, quals = b.seqs_ascii.copy(), b.quals.copy()
+        soil.soil(reads, quals, mate, seed=50 + mate)
+        out.append(os.path.join(workdir, f"soiled_{mate}.fq"))
+        _write_fastq(out[-1], mate, reads, quals)
+        n += len(reads)
+    return out, n
+
+
+def _clean_argv(path: str, where: str) -> list[tuple[str, list, str]]:
+    """(title, argv, .stat) of the two stages on one file, chained as
+    workflow.clean_reads chains them; outputs in ``where``."""
+    lq = os.path.join(where, os.path.basename(path) + ".nonLowQual.gz")
+    ad = lq + ".nonAdapter.gz"
+    return [("clean_lowqual -e 0.01 -r 75",
+             ["clean_lowqual", "-e", "0.01", "-r", "75", path, lq,
+              lq[:-3] + ".stat"], lq[:-3] + ".stat"),
+            ("clean_adapter -r 75",
+             ["clean_adapter", "-r", "75", lq, ad, ad[:-3] + ".stat"],
+             ad[:-3] + ".stat")]
+
+
+def phase_clean(workdir: str, files: list[str]) -> list:
+    """Both cleaning stages on the soiled library through cli.main on the
+    card, then the oracle subset on the CPU and the card.  Returns the
+    soiled files."""
+    from dbg_assembly_tpu_torch import cli
+    from dbg_assembly_tpu_torch.clean import adapter, lowqual
+    d = os.path.join(workdir, "clean")
+    os.makedirs(d)
+    t = time.perf_counter()
+    soiled, n_reads = make_soiled(d, files)
+    _log(f"soiled library: {n_reads} reads, {time.perf_counter() - t:.1f} s")
+
+    x = torch.randint(0, 3, (200_000, 33), dtype=torch.int32, device="cuda")
+    first = torch.where(x == x.amax(1, keepdim=True),
+                        torch.arange(33, device="cuda"), 33).amin(1)
+    if not torch.equal(torch.argmax(x, 1), first):
+        raise AssertionError("torch.argmax does not return the first of "
+                             "tied maxima on the card")
+
+    for path in soiled:
+        for (title, argv, stat), mod in zip(_clean_argv(path, d),
+                                            (lowqual, adapter)):
+            mod.reset_counts()
+            wall = _phase_wall(f"{title} {os.path.basename(path)}",
+                               lambda: cli.main(argv + ["--device", "cuda"]))
+            s = _stat_numbers(stat)
+            raw = s.get("total_raw_reads")
+            trimmed = s.get("filtered_lowqual_reads",
+                            s.get("total_adapter_trimmed_reads"))
+            short = s.get("filtered_short_reads",
+                          s.get("total_short_trimmed_reads"))
+            _log(f"{title} {os.path.basename(path)}: {raw} reads, "
+                 f"{raw / wall:.1f} reads/s; {mod.counts['chunks']} device "
+                 f"batches, {mod.counts['steps']} host-loop steps; trimmed "
+                 f"{trimmed}, dropped as short {short}, clean "
+                 f"{s.get('total_clean_reads')}")
+
+    # oracle: the first reads of each file on the CPU and on the card
+    outs = {}
+    for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+        where = os.path.join(d, f"oracle_{name}")
+        os.makedirs(where)
+        for path in soiled:
+            head = os.path.join(where, os.path.basename(path))
+            with open(path, "rb") as src, open(head, "wb") as dst:
+                dst.writelines(line for _, line in zip(
+                    range(4 * CLEAN_ORACLE_READS), src))
+            for title, argv, stat in _clean_argv(head, where):
+                cli.main(argv + ["--device", dev])
+                out = argv[-2]
+                outs.setdefault(name, []).extend(
+                    [_digest(out), _digest(stat)])
+    if outs["cpu"] != outs["card"]:
+        raise AssertionError("cleaning on the card != --device cpu on the "
+                             "oracle subset")
+    _log(f"cleaning on the card == --device cpu: first "
+         f"{CLEAN_ORACLE_READS} reads of both files, both stages, "
+         f"{len(outs['cpu'])} outputs (.gz decompressed, .stat); "
+         f"torch.argmax on the card gives the first of tied maxima")
+    return soiled
+
+
+# ---------------------------------------------------------------- phase 13
+MAP_ARGV = ["map_pair", "-k", "31", "-s", "5", "-l", "125", "-r", "100",
+            "-i", "0.97"]
+SCAFFOLD_SUFFIXES = (".scaffold.links.all", ".scaffold.links.uniq",
+                     ".scaffold.seq.fa", ".scaffold.pos.tab",
+                     ".scaffold_repeat.seq.fa", ".scaffold_repeat.pos.tab")
+
+
+def phase_map(workdir: str, files: list[str], contigs: str,
+              kernels: dict) -> int:
+    """map_pair + link_scaffold with the torch engine on the card and with
+    the native engine; every output equal.  Returns the torch run's radix
+    sort launches."""
+    from dbg_assembly_tpu_torch import cli
+    digests, sort_launches = {}, 0
+    base = os.path.basename(files[0])
+    for engine in ("torch", "native"):
+        where = os.path.join(workdir, "map", engine)
+        lib, links = _mirror(files, where)
+        mdir = os.path.join(where, "out")
+        argv = MAP_ARGV + ["-o", mdir, "--engine", engine, "--device",
+                           "cuda", contigs, lib]
+        for mod in kernels.values():
+            mod.launches = 0
+        title = f"map_pair ... --engine {engine}"
+        wall = _phase_wall(title, lambda: cli.main(argv))
+        counts = {n: m.launches for n, m in kernels.items()}
+        s = _stat_numbers(os.path.join(mdir, base + ".map_pair.stat"))
+        total = s["total_read_pair_num"]
+        both = s["map_ctg_diff_num"] + s["map_ctg_same_num"]
+        _log(f"{title}: {total} pairs, {total / wall:.1f} pairs/s; both "
+             f"ends mapped {both / total:.4f}, reads mapped "
+             f"{(2 * both + s['map_ctg_gap_num']) / (2 * total):.4f} "
+             f"(diff {s['map_ctg_diff_num']}, same {s['map_ctg_same_num']}"
+             f", gap {s['map_ctg_gap_num']}); kernel launches {counts}")
+        if engine == "torch":
+            sort_launches = counts["radix_sort"]
+            if sort_launches <= 0:
+                raise AssertionError("map_pair --engine torch never "
+                                     "launched the radix sort")
+        two = os.path.join(where, "twoctg.lib")
+        with open(two, "w") as f:
+            f.write(os.path.join(mdir, base + ".map_pair.2ctg.gz") + "\n")
+        pre = os.path.join(where, "scf")
+        _phase_wall(f"link_scaffold -i 400 -n 3 (after --engine {engine})",
+                    lambda: cli.main(["link_scaffold", "-i", "400", "-n",
+                                      "3", "-o", pre, "--device", "cuda",
+                                      contigs, two]))
+        lens = _fasta_lengths(pre + ".insert400.scaffold.seq.fa")
+        reps = _fasta_lengths(pre + ".insert400.scaffold_repeat.seq.fa")
+        _log(f"scaffolds (--engine {engine}): {len(lens)}, total length "
+             f"{int(lens.sum())}, N50 {_n50(lens)}; repeat singlets "
+             f"{len(reps)}")
+        digests[engine] = {
+            suf: _digest(os.path.join(mdir, base + suf))
+            for suf in (".map_pair.2ctg.gz", ".map_pair.1ctg.gz",
+                        ".map_pair.gap.gz", ".map_pair.stat")}
+        digests[engine].update({suf: _digest(pre + ".insert400" + suf)
+                                for suf in SCAFFOLD_SUFFIXES})
+    if digests["torch"] != digests["native"]:
+        bad = [k for k in digests["native"]
+               if digests["torch"][k] != digests["native"][k]]
+        raise AssertionError(f"map/scaffold --engine torch != native: {bad}")
+    _log(f"map_pair + link_scaffold --engine torch == --engine native: "
+         f"{len(digests['torch'])} files")
+    return sort_launches
+
+
+def phase_map_index(srt, contigs: str, sort_rec: dict) -> None:
+    """The index map_pair builds from ``contigs`` (-k 31 -l 125), on the
+    card == on the CPU (sort_plain), every array; and the radix sort at
+    its keys' shape checked and timed into ``sort_rec`` (suffix
+    _map_index).  map_pair's outputs read a payload only where a k-mer is
+    unique, so they cannot show which payload a run kept: this can."""
+    from dbg_assembly_tpu_torch.scaffold import index, map_pair
+    _, seqs = map_pair.read_contig_fasta(contigs)
+    seqs = [s if len(s) >= 125 else b"" for s in seqs]
+    card, cpu = (index.build(seqs, 31, device=d) for d in ("cuda", "cpu"))
+    fields = ("kmers", "ids", "pos", "direct", "uniq")
+    bad = [f for f in fields
+           if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f))]
+    if bad:
+        raise AssertionError(f"contig index on the card != on the CPU: {bad}")
+    _log(f"contig index on the card == on the CPU: {cpu.kmers.shape[0]} "
+         f"k-mers, {int(cpu.uniq.sum())} unique; {', '.join(fields)} equal")
+    concat, codes, offsets, _ = index.device_rows(seqs, "cuda")
+    keys = index.window_keys(concat, codes, offsets, 31)[0]
+    del card, cpu, concat, codes, offsets
+    _sort_shape(srt, sort_rec, "map_index", keys, 62, True)
+
+
+def phase_clean_map_steps(workdir: str, soiled: list[str],
+                          files: list[str], contigs: str) -> None:
+    """``--profile``: the stages of phases 12 and 13 on one file step by
+    step (host clock, the card synchronised after each step): parse, the
+    device work with its copies, and the whole stage; the rest of the
+    stage is the host's formatting and writing."""
+    from dbg_assembly_tpu_torch.clean import adapter, lowqual
+    from dbg_assembly_tpu_torch.io import fastq
+    from dbg_assembly_tpu_torch.scaffold import index, map_pair
+    d = os.path.join(workdir, "steps_clean_map")
+    os.makedirs(d)
+    lq = os.path.join(d, "lq.gz")
+    steps = []
+
+    def step(name, fn):
+        return _step(steps, name, fn)
+
+    b = step("lowqual: parse", lambda: fastq.read_batch(
+        soiled[0], fmt="fq", strict_n=True, keep_heads=True,
+        keep_ascii=True))
+    step("lowqual: N mask + scan on the card", lambda:
+         lowqual.clean_lowqual_arrays(b.quals, b.seqs_ascii, b.lengths, 0.01,
+                                      75, device="cuda"))
+    step("lowqual: run_file", lambda: lowqual.run_file(
+        soiled[0], lq, lq + ".stat", 0.01, 75))
+    b = step("adapter: parse", lambda: fastq.read_batch(
+        lq, fmt="fq", strict_n=True, keep_heads=True, keep_ascii=True))
+    seqs = [s for _, s in adapter.DEFAULT_ADAPTERS["Both-adapter"]]
+    step("adapter: DP on the card", lambda: adapter.clean_adapter_arrays(
+        b.codes, b.lengths, seqs, 12, 75, device="cuda"))
+    step("adapter: run_file", lambda: adapter.run_file(
+        lq, lq + ".ad.gz", lq + ".ad.stat", min_read_len=75))
+    ids, seqs = step("map: read contigs", lambda:
+                     map_pair.read_contig_fasta(contigs))
+    seqs = [s if len(s) >= 125 else b"" for s in seqs]
+    ix = step("map: index on the card", lambda: index.build(seqs, 31))
+    b = step("map: parse file 1", lambda: fastq.read_batch(
+        files[0], keep_heads=True, keep_ascii=True))
+    step("map: map file 1 on the card", lambda: index.map_reads(
+        ix, b.codes, b.seqs_ascii, b.lengths, 5, 0.97))
+    clens = np.array([len(s) for s in seqs], np.int64)
+    step("map: _map_pair_files (parse 2 files, map, route, format, write)",
+         lambda: map_pair._map_pair_files(files[0], files[1], ix, ids, clens,
+                                          d, 5, 100, 0.97, 1))
+    _log("cleaning and mapping by step (s): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in steps))
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1035,9 +1313,23 @@ def main() -> int:
                                kernels, 0.05)
         hard_files, hard_n = make_hard_library(workdir)
         phase_correct(workdir, cz, "hard", hard_files, hard_n, kernels, None)
+        soiled = phase_clean(workdir, files)
+        contigs = prefix + ".contig.seq.fa"
+        map_launches = phase_map(workdir, files, contigs, kernels)
+        launches["radix_sort"] += map_launches
+        phase_map_index(srt, contigs, sort_rec)
         if "--profile" in sys.argv[1:]:
-            phase_profile(workdir, lib, cz, files)
+            pdir = os.path.join(workdir, "prof_map")
+            plib, _ = _mirror(files, pdir)
+            extra = [(f"{title} (first soiled file)", argv)
+                     for title, argv, _ in _clean_argv(
+                         soiled[0], os.path.dirname(plib))]
+            extra.append(("map_pair -k 31 -s 5 -l 125 -r 100 -i 0.97",
+                          MAP_ARGV + ["-o", os.path.join(pdir, "out"),
+                                      contigs, plib]))
+            phase_profile(workdir, lib, cz, files, extra)
             phase_correct_steps(cz, cfiles)
+            phase_clean_map_steps(workdir, soiled, files, contigs)
         phase_doubling_oracle(workdir, prefix, dprefix)
         table = phase_oracle(files, lib)
         phase_doubling_steps(table, workdir)
@@ -1050,7 +1342,8 @@ def main() -> int:
         {"name": "radix_sort", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
-         "launches": launches["radix_sort"], **sort_rec}]
+         "launches": launches["radix_sort"],
+         "launches_map_pair": map_launches, **sort_rec}]
     for name, p in probes.PROBES.items():
         records.append({
             "name": f"probe_{name}", "route": "cuda",

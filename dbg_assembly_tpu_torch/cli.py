@@ -1,17 +1,23 @@
 """Command line: the reference binaries' flags, plus --device.
 
+    python -m dbg_assembly_tpu_torch clean_lowqual -e 0.001 -r 75 in.fq out.gz out.stat
+    python -m dbg_assembly_tpu_torch clean_adapter -a Both-adapter -s 12 in out stat
     python -m dbg_assembly_tpu_torch kmerfreq -k 17 -m 1 reads.lib
     python -m dbg_assembly_tpu_torch correct_error_reads -k 17 freq.cz reads.lib
     python -m dbg_assembly_tpu_torch correct_error -k 17 freq8.cz reads.lib
     python -m dbg_assembly_tpu_torch debruijn_contig -k 31 -o prefix reads.lib
     python -m dbg_assembly_tpu_torch debruijn_contig --readout doubling ...
+    python -m dbg_assembly_tpu_torch map_pair -l 125 -r 250 -o outdir ctg.fa reads.lib
+    python -m dbg_assembly_tpu_torch link_scaffold -i 400 -o prefix ctg.fa twoctg.lib
 
-Flag letters match dbg_assembly_tpu's cli (kmerfreq as the workflow runs it,
-test/01.clean_correct/work.sh:31; correct_error_reads as
-main_parallel_senior.cpp:142-163; debruijn_contig as DBG_contig/main.cpp:
-162-196).  --device cuda (the default) runs on the GPU and fails when
-there is none; --device cpu runs the kernels' plain PyTorch versions and
-the device programs on the CPU.
+Flag letters match dbg_assembly_tpu's cli (clean_lowqual as
+clean_lowqual.cpp:191-209; clean_adapter as clean_adapter.cpp:272-291;
+kmerfreq as the workflow runs it, test/01.clean_correct/work.sh:31;
+correct_error_reads as main_parallel_senior.cpp:142-163; debruijn_contig as
+DBG_contig/main.cpp:162-196; map_pair as map_pair.cpp:50-66; link_scaffold
+as link_scaffold.cpp:89-104).  --device cuda (the default) runs on the GPU
+and fails when there is none; --device cpu runs the kernels' plain PyTorch
+versions and the device programs on the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +30,41 @@ def _device_flag(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the chop, sort, segment reductions and "
                     "device programs run")
+
+
+def _clean_lowqual(argv):
+    ap = argparse.ArgumentParser(prog="clean_lowqual")
+    ap.add_argument("-e", type=float, default=0.001)
+    ap.add_argument("-q", type=int, default=33)
+    ap.add_argument("-r", type=int, default=75)
+    ap.add_argument("-t", type=int, default=3)    # accepted, unused
+    _device_flag(ap)
+    ap.add_argument("input")
+    ap.add_argument("output")
+    ap.add_argument("stat")
+    a = ap.parse_args(argv)
+    from .clean import lowqual
+    return lowqual.run_file(a.input, a.output, a.stat, err_cutoff=a.e,
+                            min_read_len=a.r, quality_shift=a.q,
+                            device=a.device)
+
+
+def _clean_adapter(argv):
+    ap = argparse.ArgumentParser(prog="clean_adapter")
+    ap.add_argument("-a", default="Both-adapter")
+    ap.add_argument("-b", type=int, default=0)
+    ap.add_argument("-s", type=int, default=12)
+    ap.add_argument("-r", type=int, default=75)
+    ap.add_argument("-t", type=int, default=3)    # accepted, unused
+    _device_flag(ap)
+    ap.add_argument("input")
+    ap.add_argument("output")
+    ap.add_argument("stat")
+    a = ap.parse_args(argv)
+    from .clean import adapter
+    return adapter.run_file(a.input, a.output, a.stat, adapter_file=a.a,
+                            score_cutoff=a.s, min_read_len=a.r,
+                            use_rc=bool(a.b), device=a.device)
 
 
 def _kmerfreq(argv):
@@ -159,11 +200,61 @@ def _debruijn_contig(argv):
                         mesh_devices=a.mesh, device=a.device)
 
 
+def _map_pair(argv):
+    ap = argparse.ArgumentParser(prog="map_pair")
+    ap.add_argument("-k", type=int, default=31)
+    ap.add_argument("-s", type=int, default=5)
+    ap.add_argument("-l", type=int, default=125)
+    ap.add_argument("-r", type=int, default=250)
+    ap.add_argument("-i", type=float, default=0.97)
+    ap.add_argument("-f", type=int, default=1)
+    ap.add_argument("-o", default="./")
+    ap.add_argument("--engine", choices=("torch", "native"), default="torch",
+                    help="mapper: torch = the index and mapper on --device; "
+                    "native = the shared C++ engine")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard read batches over N devices (not ported "
+                    "yet)")
+    _device_flag(ap)
+    ap.add_argument("contig_fa")
+    ap.add_argument("lib")
+    a = ap.parse_args(argv)
+    from .scaffold import map_pair
+    return map_pair.run(a.contig_fa, a.lib, a.o, ksize=a.k,
+                        seed_kmer_num=a.s, min_ctg_len=a.l, min_read_len=a.r,
+                        min_identity=a.i, fmt=a.f, mesh_devices=a.mesh,
+                        engine=a.engine, device=a.device)
+
+
+def _link_scaffold(argv):
+    ap = argparse.ArgumentParser(prog="link_scaffold")
+    ap.add_argument("-m", type=int, default=0)
+    ap.add_argument("-n", type=int, default=3)
+    ap.add_argument("-i", type=int, default=400)
+    ap.add_argument("-o", default="Output")
+    _device_flag(ap)
+    ap.add_argument("contig_fa")
+    ap.add_argument("twoctg_lib")
+    a = ap.parse_args(argv)
+    # the link graph and the readout run on the host; the device is
+    # checked as every command's is, so a run meant for the card fails
+    # where there is none
+    from . import resolve_device
+    resolve_device(a.device)
+    from .scaffold import scaffold
+    return scaffold.run(a.contig_fa, a.twoctg_lib, a.o, insert_size=a.i,
+                        pair_num_cut=a.n, is_mate=bool(a.m))
+
+
 COMMANDS = {
+    "clean_lowqual": _clean_lowqual,
+    "clean_adapter": _clean_adapter,
     "kmerfreq": _kmerfreq,
     "correct_error_reads": _correct,
     "correct_error": _correct_8bit,
     "debruijn_contig": _debruijn_contig,
+    "map_pair": _map_pair,
+    "link_scaffold": _link_scaffold,
 }
 
 

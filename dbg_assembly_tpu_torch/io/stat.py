@@ -1,6 +1,6 @@
 """.stat files and C++ number formatting (counterpart of the parts of
-dbg_assembly_tpu/io/stat.py that counting, correction and the contig stage
-use):
+dbg_assembly_tpu/io/stat.py that cleaning, counting, correction, the contig
+stage and mapping use):
 ``ostream << double`` prints with precision 6, as printf("%g");
 ``boost::lexical_cast<std::string>(double)`` round-trips with 17 digits, as
 printf("%.17g") (the contig headers' avgDepth, contig.cpp:1006).
@@ -17,6 +17,66 @@ def fmt_g6(x: float) -> str:
 def fmt_lexical(x: float) -> str:
     """Format like boost::lexical_cast<string>(double) (printf %.17g)."""
     return "%.17g" % x
+
+
+def fmt_lexical_int(x: int) -> str:
+    return "%d" % x
+
+
+def write_clean_lowqual_stat(path: str, raw_reads: int, raw_bases: int,
+                             lowqual_reads: int, lowqual_bases: int,
+                             short_reads: int, short_bases: int,
+                             clean_reads: int, clean_bases: int) -> None:
+    """clean_lowqual's .stat (clean_lowqual.cpp:314-325)."""
+    def pct(a, b):
+        return fmt_g6(a / b * 100 if b else float("nan"))
+    with open(path, "w") as f:
+        f.write(f"#total_raw_reads:   {raw_reads}\n")
+        f.write(f"#total_raw_bases:   {raw_bases}\n")
+        f.write(f"#filtered_lowqual_reads: {lowqual_reads}\t"
+                f"{pct(lowqual_reads, raw_reads)}%\n")
+        f.write(f"#filtered_lowqual_bases: {lowqual_bases}\t"
+                f"{pct(lowqual_bases, raw_bases)}%\n")
+        f.write(f"#filtered_short_reads: {short_reads}\t"
+                f"{pct(short_reads, raw_reads)}%\n")
+        f.write(f"#filtered_short_bases: {short_bases}\t"
+                f"{pct(short_bases, raw_bases)}%\n")
+        f.write(f"#total_clean_reads: {clean_reads}\t"
+                f"{pct(clean_reads, raw_reads)}%\n")
+        f.write(f"#total_clean_bases: {clean_bases}\t"
+                f"{pct(clean_bases, raw_bases)}%\n")
+
+
+def write_clean_adapter_stat(path: str, raw_reads: int, raw_bases: int,
+                             trimmed_reads: int, trimmed_bases: int,
+                             short_reads: int, short_bases: int,
+                             clean_reads: int, clean_bases: int) -> None:
+    """clean_adapter's .stat (clean_adapter.cpp:458-471)."""
+    with open(path, "w") as f:
+        f.write(f"total_raw_reads:  {raw_reads}\n")
+        f.write(f"total_raw_bases:  {raw_bases}\n")
+        f.write(f"total_adapter_trimmed_reads:  {trimmed_reads}\n")
+        f.write(f"total_adapter_trimmed_bases:  {trimmed_bases}\t"
+                f"{fmt_g6(trimmed_bases / raw_bases)}\n")
+        f.write(f"total_short_trimmed_reads:  {short_reads}\n")
+        f.write(f"total_short_trimmed_bases:  {short_bases}\t"
+                f"{fmt_g6(short_bases / raw_bases)}\n")
+        f.write(f"total_clean_reads:  {clean_reads}\n")
+        f.write(f"total_clean_bases:  {clean_bases}\t"
+                f"{fmt_g6(clean_bases / raw_bases)}\n")
+
+
+def write_map_pair_stat(path: str, total: int, diff: int, same: int,
+                        gap: int, none: int) -> None:
+    """map_pair's .map_pair.stat (map_pair.cpp:348-352)."""
+    def pct(a):
+        return fmt_g6(a / total * 100 if total else float("nan"))
+    with open(path, "w") as f:
+        f.write(f"\ttotal_read_pair_num: {total}\n")
+        f.write(f"\tmap_ctg_diff_num: {diff}  {pct(diff)}%\n")
+        f.write(f"\tmap_ctg_same_num: {same}  {pct(same)}%\n")
+        f.write(f"\tmap_ctg_gap_num: {gap}  {pct(gap)}%\n")
+        f.write(f"\tmap_no_no_num: {none}  {pct(none)}%\n")
 
 
 def write_correct_stat(path: str, raw_reads: int, raw_bases: int,

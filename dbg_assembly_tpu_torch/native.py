@@ -6,8 +6,9 @@ native/build/libdbg_native.so, built on first use with ``make -C native``
 parser, the streaming ingest table (the smoke test's oracle), the hash-layout
 emulation, the exact contig readout engine, the host passes of the
 doubling readout (links, slot ranks, chain heads, seed argmin, the GCC 4.4
-length sort) with the host twins of its device chain resolution, and the
-batch error corrector (``correct_error_reads --engine native``).
+length sort) with the host twins of its device chain resolution, the
+batch error corrector (``correct_error_reads --engine native``) and the
+contig index and read mapper (``map_pair --engine native``).
 """
 
 from __future__ import annotations
@@ -119,6 +120,15 @@ def _build_and_load() -> ctypes.CDLL:
         _u8p, _i64p, _i32p, ctypes.c_int64, _u8p, ctypes.c_int64, _u8p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int64, ctypes.c_int, _i32p, _i32p, _i32p, _i32p, _i32p]
+    lo.mapidx_create.restype = ctypes.c_void_p
+    lo.mapidx_create.argtypes = [ctypes.c_int, _u8p, _i64p, ctypes.c_int64]
+    lo.mapidx_free.restype = None
+    lo.mapidx_free.argtypes = [ctypes.c_void_p]
+    lo.mapidx_map.restype = None
+    lo.mapidx_map.argtypes = [
+        ctypes.c_void_p, _u8p, _u8p, ctypes.c_int64, ctypes.c_int, _i32p,
+        _i64p, ctypes.c_int, ctypes.c_double, _u8p, _i32p, _i32p, _i32p,
+        _i32p, _i32p, _u8p, ctypes.POINTER(ctypes.c_float)]
     return lo
 
 
@@ -167,6 +177,62 @@ class NativeIngest:
     def close(self):
         if self._h:
             lib().ingest_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeMapIndex:
+    """Positional contig index and seed-and-extend mapper
+    (native/map_engine.cpp): ``map_pair --engine native``, the oracle of
+    the device mapper (scaffold/index.py)."""
+
+    def __init__(self, ksize: int, concat: np.ndarray, offsets: np.ndarray):
+        # the engine copies the bases, so the arrays need not outlive it
+        c = np.ascontiguousarray(concat, np.uint8)
+        off = np.ascontiguousarray(offsets, np.int64)
+        if len(off) < 1 or off[0] != 0 or off[-1] != len(c) \
+                or (np.diff(off) < 0).any():
+            raise ValueError("offsets must rise from 0 to len(concat)")
+        self._h = lib().mapidx_create(ksize, c.ctypes.data_as(_u8p),
+                                      off.ctypes.data_as(_i64p),
+                                      ctypes.c_int64(len(off) - 1))
+
+    def map(self, codes: np.ndarray, ascii_seq: np.ndarray,
+            lengths: np.ndarray, search_start: np.ndarray,
+            seed_kmer_num: int, min_identity: float):
+        """(mapped u8, contig i32, read_start, read_end, contig_start,
+        contig_end i32, direct u8, identity f32), one row a read."""
+        c = np.ascontiguousarray(codes, np.uint8)
+        a = np.ascontiguousarray(ascii_seq, np.uint8)
+        ln = np.ascontiguousarray(lengths, np.int32)
+        ss = np.ascontiguousarray(search_start, np.int64)
+        N, L = c.shape
+        if a.shape != c.shape or ln.shape != (N,) or ss.shape != (N,):
+            raise ValueError(f"codes {c.shape}, ascii {a.shape}, lengths "
+                             f"{ln.shape}, search_start {ss.shape}")
+        mapped, dr = np.zeros(N, np.uint8), np.zeros(N, np.uint8)
+        cid, rs, re_, cs, ce = (np.zeros(N, np.int32) for _ in range(5))
+        ident = np.zeros(N, np.float32)
+        lib().mapidx_map(
+            ctypes.c_void_p(self._h), c.ctypes.data_as(_u8p),
+            a.ctypes.data_as(_u8p), ctypes.c_int64(N), ctypes.c_int(L),
+            ln.ctypes.data_as(_i32p), ss.ctypes.data_as(_i64p),
+            ctypes.c_int(seed_kmer_num), ctypes.c_double(min_identity),
+            mapped.ctypes.data_as(_u8p), cid.ctypes.data_as(_i32p),
+            rs.ctypes.data_as(_i32p), re_.ctypes.data_as(_i32p),
+            cs.ctypes.data_as(_i32p), ce.ctypes.data_as(_i32p),
+            dr.ctypes.data_as(_u8p),
+            ident.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        return mapped, cid, rs, re_, cs, ce, dr, ident
+
+    def close(self):
+        if self._h:
+            lib().mapidx_free(self._h)
             self._h = None
 
     def __del__(self):

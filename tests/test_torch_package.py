@@ -57,6 +57,7 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cz, lib = str(tmp_path / "x.cz"), str(tmp_path / "x.lib")
+    fq, fa = str(tmp_path / "x.fq"), str(tmp_path / "x.fa")
     for make in (lambda: resolve_device("cuda"),
                  lambda: KmerCounter(17, device="cuda"),
                  lambda: GraphBuilder(31, device="cuda"),
@@ -64,7 +65,12 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
                  lambda: cli.main(["correct_error_reads", "--device", "cuda",
                                    cz, lib]),
                  lambda: cli.main(["correct_error_reads", "--engine", "torch",
-                                   cz, lib])):
+                                   cz, lib]),
+                 lambda: cli.main(["clean_lowqual", fq, fq + ".gz", "s"]),
+                 lambda: cli.main(["clean_adapter", fq, fq + ".gz", "s"]),
+                 lambda: cli.main(["map_pair", fa, lib]),
+                 lambda: cli.main(["map_pair", "--engine", "torch", fa, lib]),
+                 lambda: cli.main(["link_scaffold", fa, lib])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu") == torch.device("cpu")
