@@ -94,7 +94,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      equal to ``sort_plain`` and timed beside it and ``torch.sort``, as in
      phase 7.  ``--profile`` runs the three commands of phases 12 and 13
      once more under torch.profiler, and then step by step (parse, device
-     work, whole stage).
+     work, whole stage);
+  14. long reads: 700 bp single reads of phase 6's genome (1500 bp
+     fragments, 8x, 0.1-0.4 % errors); ``map_reads -k 31 -s 5 -l 125 -r 250
+     -i 0.97`` against phase 8's exact contigs with ``--engine torch`` on
+     the card and with ``--engine native``: every file equal (the .gz
+     decompressed), the radix sort's launches > 0 in the torch run; then
+     ``link_contig -n 3`` and ``link_supertig -n 3`` on the torch run's
+     .2ctg list; wall per command, reads a second, peak device memory, the
+     .stat's four shares, the scafftig and supertig counts and N50;
+  15. the whole workflow: (a) workflow.run_full on phase 12's soiled pair
+     (insert 400) on the card with PipelineConfig(map_min_read=100) (the
+     default 250 maps no 150 bp read): the whole wall and each stage's
+     (clean, kmerfreq, correct, contig, map, scaffold) wall, share and peak
+     device memory, the contig and scaffold counts and N50s; its 01.clean
+     files equal phase 12's card outputs, and the chop and the sort launch
+     (their counts join the JSON record as launches_pipeline); (b) on a
+     small library (200 kb, 150 bp, 20x, inserts 400 and 800, seed 7) the
+     ``pipeline -k 13 -p recipe.para`` command, and run_full at k 13 with
+     map_min_read 100, each on the card and with ``--device cpu``: every
+     file under the two work dirs equal.  ``--profile`` adds (a) once more
+     under torch.profiler and its kmerfreq step by step.
 Bounds (bound_ms) are the larger of the bytes each kernel must move (each
 input read once, each output written once) over the published 3.35 TB/s
 and its operations over 67 T a second (the published float32 rate outside
@@ -764,9 +784,10 @@ def phase_correct_steps(cz: str, files: list[str]) -> None:
 def phase_profile(workdir: str, lib: str, cz: str, files: list[str],
                   extra: list) -> None:
     """``--profile``: each stage of phases 8 and 11, and the (title, argv)
-    runs of ``extra``, once more under torch.profiler: wall, device busy
-    time (the sum of every device item's self time), the idle share, the
-    chop's and the sort's device time and the largest device items."""
+    runs of ``extra`` (argv a command line, or a function to call), once
+    more under torch.profiler: wall, device busy time (the sum of every
+    device item's self time), the idle share, the chop's and the sort's
+    device time and the largest device items."""
     from torch.profiler import ProfilerActivity, profile
     from dbg_assembly_tpu_torch import cli
     contig = ["debruijn_contig", "-k", "31", "-i", "0.02", "-M", "125"]
@@ -788,7 +809,10 @@ def phase_profile(workdir: str, lib: str, cz: str, files: list[str],
                 profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            cli.main(argv + ["--device", "cuda"])
+            if callable(argv):
+                argv()
+            else:
+                cli.main(argv + ["--device", "cuda"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         # device-side items only (kernels, copies, sets): a CPU op's self
@@ -1057,6 +1081,298 @@ def phase_clean_map_steps(workdir: str, soiled: list[str],
         f"{name} {sec:.3f}" for name, sec in steps))
 
 
+# ---------------------------------------------------------------- phase 14
+MAP_READS_ARGV = ["map_reads", "-k", "31", "-s", "5", "-l", "125", "-r",
+                  "250", "-i", "0.97"]
+MAP_READS_SUFFIXES = (".map_reads.2ctg.gz", ".map_reads.1ctg.gz",
+                      ".map_reads.2ctg.gz.reads.fa.gz", ".map_reads.stat")
+
+
+def make_long_reads(workdir: str) -> tuple[str, int]:
+    """Long single reads of phase 6's genome, simulated as
+    tests/test_golden_linkcontig.py does (700 bp from 1500 bp fragments at
+    8x, 0.1-0.4 % errors, mate 1), as one FASTQ file."""
+    from tools.simulate_reads import make_genome, simulate_pe
+    r1, q1, _, _ = simulate_pe(make_genome(GENOME_LEN, seed=42), 700, 1500,
+                               8.0, seed=99, err_start=0.001, err_end=0.004)
+    path = os.path.join(workdir, "long_1.fq")
+    _write_fastq(path, 1, r1, q1)
+    return path, len(r1)
+
+
+def phase_map_reads(workdir: str, contigs: str, kernels: dict) -> int:
+    """map_reads with the torch engine on the card and with the native
+    engine, every output equal; then link_contig and link_supertig on the
+    torch run's .2ctg list.  Returns the torch run's radix sort
+    launches."""
+    from dbg_assembly_tpu_torch import cli
+    d = os.path.join(workdir, "long")
+    t = time.perf_counter()
+    fq, n_reads = make_long_reads(workdir)
+    _log(f"long reads: {n_reads} reads of 700 bp, "
+         f"{time.perf_counter() - t:.1f} s")
+    base = os.path.basename(fq)
+    digests, sort_launches = {}, 0
+    for engine in ("torch", "native"):
+        lib, _ = _mirror([fq], os.path.join(d, engine))
+        mdir = os.path.join(d, engine, "out")
+        for mod in kernels.values():
+            mod.launches = 0
+        title = f"map_reads {' '.join(MAP_READS_ARGV[1:])} --engine {engine}"
+        wall = _phase_wall(title, lambda: cli.main(
+            MAP_READS_ARGV + ["-o", mdir, "--engine", engine, "--device",
+                              "cuda", contigs, lib]))
+        counts = {n: m.launches for n, m in kernels.items()}
+        with open(os.path.join(mdir, base + ".map_reads.stat")) as f:
+            shares = re.findall(r"(\w+): \d+\s+(\S+)%", f.read())
+        s = _stat_numbers(os.path.join(mdir, base + ".map_reads.stat"))
+        _log(f"{title}: {s['total_read_num']} reads, "
+             f"{s['total_read_num'] / wall:.1f} reads/s; shares (%) "
+             + ", ".join(f"{k} {v}" for k, v in shares)
+             + f"; kernel launches {counts}")
+        digests[engine] = {suf: _digest(os.path.join(mdir, base + suf))
+                           for suf in MAP_READS_SUFFIXES}
+        if engine == "torch":
+            sort_launches = counts["radix_sort"]
+            if sort_launches <= 0:
+                raise AssertionError("map_reads --engine torch never "
+                                     "launched the radix sort")
+            if s["map_ctg_diff_num"] <= 0:
+                raise AssertionError("map_reads linked no two contigs")
+            two = os.path.join(d, "twoctg.lib")
+            with open(two, "w") as f:
+                f.write(os.path.join(mdir, base + ".map_reads.2ctg.gz")
+                        + "\n")
+    if digests["torch"] != digests["native"]:
+        bad = [k for k in digests["native"]
+               if digests["torch"][k] != digests["native"][k]]
+        raise AssertionError(f"map_reads --engine torch != native: {bad}")
+    _log(f"map_reads --engine torch == --engine native: "
+         f"{len(digests['torch'])} files")
+    pre = os.path.join(d, "link")
+    for cmd, tag in (("link_contig", ".contig_R"),
+                     ("link_supertig", ".supertig")):
+        _phase_wall(f"{cmd} -n 3", lambda: cli.main(
+            [cmd, "-n", "3", "-o", pre, "--device", "cuda", contigs, two]))
+        lens = _fasta_lengths(pre + tag + ".seq.fa")
+        _log(f"{cmd}: {len(lens)} {tag[1:]} records, total length "
+             f"{int(lens.sum())}, N50 {_n50(lens)} (contigs: "
+             f"{len(_fasta_lengths(contigs))}, N50 "
+             f"{_n50(_fasta_lengths(contigs))})")
+        if not len(lens):
+            raise AssertionError(f"{cmd} wrote no record")
+    return sort_launches
+
+
+# ---------------------------------------------------------------- phase 15
+WORKFLOW_STAGES = (("clean", "dbg_assembly_tpu_torch.clean.lowqual",
+                    "run_file"),
+                   ("clean", "dbg_assembly_tpu_torch.clean.adapter",
+                    "run_file"),
+                   ("kmerfreq", "dbg_assembly_tpu_torch.kmer.kmerfreq", "run"),
+                   ("correct", "dbg_assembly_tpu_torch.correct.pipeline",
+                    "run"),
+                   ("contig", "dbg_assembly_tpu_torch.contig.pipeline", "run"),
+                   ("map", "dbg_assembly_tpu_torch.scaffold.map_pair", "run"),
+                   ("scaffold", "dbg_assembly_tpu_torch.scaffold.scaffold",
+                    "run"))
+
+
+@contextlib.contextmanager
+def _stage_clock(stages: dict):
+    """Times each stage function the workflow calls (the card synchronised
+    around each call) into stages[name] = [wall s, peak device memory B],
+    summed over calls (peak: the largest), and puts the functions back
+    after."""
+    import importlib
+    saved = []
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec = stages.setdefault(name, [0.0, 0])
+            rec[0] += time.perf_counter() - t
+            rec[1] = max(rec[1], torch.cuda.max_memory_allocated())
+            return out
+        return run
+
+    try:
+        for name, modname, attr in WORKFLOW_STAGES:
+            mod = importlib.import_module(modname)
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, timed(name, getattr(mod, attr)))
+        yield stages
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _run_workflow(wdir: str, soiled: list[str]) -> dict:
+    """workflow.run_full on the soiled pair (insert 400) on the card, with
+    map_min_read 100: the default 250 maps no 150 bp read."""
+    from dbg_assembly_tpu_torch import workflow
+    cfg = workflow.PipelineConfig(map_min_read=100, device="cuda")
+    return workflow.run_full([(soiled[0], soiled[1], 400)], cfg, wdir)
+
+
+def phase_workflow_steps(workdir: str, soiled: list[str],
+                         files: list[str]) -> None:
+    """``--profile``: the workflow's kmerfreq (-q 10 on the cleaned .gz
+    files) step by step, beside phase 8's parse of a plain file (host
+    clock, the card synchronised after each step)."""
+    from dbg_assembly_tpu_torch.io import fastq
+    from dbg_assembly_tpu_torch.kmer import count, kmerfreq
+    clean = os.path.join(workdir, "workflow", "01.clean")
+    cleaned = [os.path.join(clean, os.path.basename(p)
+                            + ".nonLowQual.gz.nonAdapter.gz") for p in soiled]
+    steps = []
+
+    def step(name, fn):
+        return _step(steps, name, fn)
+
+    step("parse a plain file (phase 8's input)",
+         lambda: fastq.read_batch(files[0]))
+    b = step("parse a cleaned .gz file", lambda: fastq.read_batch(cleaned[0]))
+    codes, lens = step("-q 10 split of that file", lambda:
+                       kmerfreq.split_reads_by_quality(
+                           b.codes, b.lengths, b.quals, 17, 10))
+    counter = count.KmerCounter(17, device="cuda")
+    step("count that file on the card", lambda: counter.add(codes, lens))
+    step("finalize", counter.finalize)
+    lib = os.path.join(workdir, "steps_kmerfreq.lib")
+    with open(lib, "w") as f:
+        f.write("".join(p + "\n" for p in cleaned))
+    step("kmerfreq.run -q 10, both files", lambda: kmerfreq.run(
+        lib, ksize=17, qual_cutoff=10, device="cuda"))
+    _log("workflow kmerfreq by step (s): " + ", ".join(
+        f"{name} {sec:.3f}" for name, sec in steps))
+
+
+def phase_workflow(workdir: str, soiled: list[str], kernels: dict) -> dict:
+    """(a) workflow.run_full on phase 12's soiled pair on the card, every
+    stage timed; its cleaned files must equal phase 12's card outputs, and
+    the chop and the sort must launch.  Returns the run's launches."""
+    wdir = os.path.join(workdir, "workflow")
+    for mod in kernels.values():
+        mod.launches = 0
+    stages = {}
+    title = ("workflow.run_full (clean, kmerfreq -q 10, correct, contig, "
+             "map + scaffold, insert 400, map_min_read 100)")
+    with _stage_clock(stages), open(os.devnull, "w") as null, \
+            contextlib.redirect_stderr(null):
+        t = time.perf_counter()
+        out = _run_workflow(wdir, soiled)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = {n: m.launches for n, m in kernels.items()}
+    _log(f"{title}: wall {wall:.3f} s; by stage (wall s, share, peak device "
+         "memory B): " + "; ".join(
+             f"{name} {sec:.3f} {sec / wall:.4f} {peak}"
+             for name, (sec, peak) in stages.items())
+         + f"; other {wall - sum(s for s, _ in stages.values()):.3f}; "
+         f"kernel launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the workflow never launched the {name} "
+                                 "kernel")
+    for key in ("contigs", "scaffolds"):
+        lens = _fasta_lengths(out[key])
+        _log(f"workflow {key}: {len(lens)}, total length {int(lens.sum())}, "
+             f"N50 {_n50(lens)}")
+        if not (len(lens) and 0.5 * GENOME_LEN <= lens.sum()
+                <= 1.2 * GENOME_LEN):
+            raise AssertionError(f"workflow {key} out of the expected range")
+    got, want = {}, {}
+    for path in soiled:
+        lq = os.path.basename(path) + ".nonLowQual"
+        for name in (lq + ".gz", lq + ".stat", lq + ".gz.nonAdapter.gz",
+                     lq + ".gz.nonAdapter.stat"):
+            got[name] = _digest(os.path.join(wdir, "01.clean", name))
+            want[name] = _digest(os.path.join(os.path.dirname(path), name))
+    if got != want:
+        raise AssertionError("workflow cleaning != phase 12's: "
+                             f"{[k for k in want if got[k] != want[k]]}")
+    _log(f"workflow 01.clean == phase 12's card outputs: {len(want)} files")
+    return launches
+
+
+def phase_workflow_small(workdir: str) -> None:
+    """(b) the pipeline command on a small library (golden.sim_dataset's
+    shape: 200 kb, 150 bp, 20x, inserts 400 and 800), with a recipe of two
+    rounds, on the card and with --device cpu: every file under the two
+    work dirs equal, .gz decompressed, each dir's own path replaced.  The
+    command maps reads of at least 250 bases, so at 150 bp its rounds
+    link nothing; run_full with map_min_read 100 is compared the same
+    way, so the rounds join contigs."""
+    import gzip
+    from tools.simulate_reads import generate_dataset
+    from dbg_assembly_tpu_torch import cli, workflow
+    d = os.path.join(workdir, "small")
+    libs = generate_dataset(os.path.join(d, "sim"), 200_000, 150, 20.0,
+                            (400, 800), seed=7)["libs"]
+
+    def tree(root):
+        out = {}
+        for sub, _, names in os.walk(root):
+            for n in names:
+                p = os.path.join(sub, n)
+                with (gzip.open(p, "rb") if p.endswith(".gz") else
+                      open(p, "rb")) as f:
+                    out[os.path.relpath(p, root)] = \
+                        f.read().replace(root.encode(), b"<root>")
+        return out
+
+    def pipeline(root, dev):
+        os.makedirs(root)
+        rows = ["#scaf_rank kmer_size seedKmerNum align_ident insert_size "
+                "pairNumCut is_mate read_file"]
+        for rank, (r1, r2, ins) in enumerate(libs, start=1):
+            lib = os.path.join(root, f"raw_{ins}.lib")
+            with open(lib, "w") as f:
+                f.write(f"{r1}\n{r2}\n")
+            rows.append(f"{rank} 31 5 0.97 {ins} 3 0 {lib}")
+        para = os.path.join(root, "recipe.para")
+        with open(para, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            cli.main(["pipeline", "-k", "13", "-w", os.path.join(root, "w"),
+                      "-p", para, "--device", dev,
+                      *(f"{r1},{r2},{ins}" for r1, r2, ins in libs)])
+
+    def run_full(root, dev):
+        cfg = workflow.PipelineConfig(correct_k=13, init_hash_size=0.01,
+                                      map_min_read=100, device=dev)
+        return workflow.run_full(libs, cfg, root)["scaffolds"]
+
+    for title, fn in (("pipeline -k 13 -p recipe.para", pipeline),
+                      ("run_full (k 13, map_min_read 100)", run_full)):
+        trees, walls = {}, {}
+        for dev in ("cuda", "cpu"):
+            root = os.path.join(d, f"{fn.__name__}_{dev}")
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stderr(null):
+                t = time.perf_counter()
+                res = fn(root, dev)
+                walls[dev] = time.perf_counter() - t
+            trees[dev] = tree(root)
+        bad = sorted(set(trees["cuda"]) ^ set(trees["cpu"])) + [
+            k for k in trees["cpu"]
+            if k in trees["cuda"] and trees["cuda"][k] != trees["cpu"][k]]
+        if bad:
+            raise AssertionError(f"{title}: card != --device cpu: {bad}")
+        extra = ""
+        if res is not None:
+            lens = _fasta_lengths(res)
+            extra = f"; {len(lens)} scaffolds, N50 {_n50(lens)}"
+        _log(f"small workflow, {title}: card {walls['cuda']:.3f} s == "
+             f"--device cpu {walls['cpu']:.3f} s on {len(trees['cpu'])} "
+             f"files{extra}")
+
+
 # ---------------------------------------------------------------- phase 9
 def _depth_records(path: str) -> list[bytes]:
     """Depth files are >name\\n<raw bytes>\\n records (the bytes never hold
@@ -1318,6 +1634,12 @@ def main() -> int:
         map_launches = phase_map(workdir, files, contigs, kernels)
         launches["radix_sort"] += map_launches
         phase_map_index(srt, contigs, sort_rec)
+        map_reads_launches = phase_map_reads(workdir, contigs, kernels)
+        launches["radix_sort"] += map_reads_launches
+        workflow_launches = phase_workflow(workdir, soiled, kernels)
+        for name, n in workflow_launches.items():
+            launches[name] += n
+        phase_workflow_small(workdir)
         if "--profile" in sys.argv[1:]:
             pdir = os.path.join(workdir, "prof_map")
             plib, _ = _mirror(files, pdir)
@@ -1327,9 +1649,14 @@ def main() -> int:
             extra.append(("map_pair -k 31 -s 5 -l 125 -r 100 -i 0.97",
                           MAP_ARGV + ["-o", os.path.join(pdir, "out"),
                                       contigs, plib]))
+            extra.append(("workflow.run_full (phase 15 a)",
+                          lambda: _run_workflow(
+                              os.path.join(workdir, "prof_workflow"),
+                              soiled)))
             phase_profile(workdir, lib, cz, files, extra)
             phase_correct_steps(cz, cfiles)
             phase_clean_map_steps(workdir, soiled, files, contigs)
+            phase_workflow_steps(workdir, soiled, files)
         phase_doubling_oracle(workdir, prefix, dprefix)
         table = phase_oracle(files, lib)
         phase_doubling_steps(table, workdir)
@@ -1338,12 +1665,15 @@ def main() -> int:
         {"name": "chop", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/chop.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_chop.py:81",
-         "launches": launches["chop"], **kern},
+         "launches": launches["chop"],
+         "launches_pipeline": workflow_launches["chop"], **kern},
         {"name": "radix_sort", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
          "launches": launches["radix_sort"],
-         "launches_map_pair": map_launches, **sort_rec}]
+         "launches_map_pair": map_launches,
+         "launches_map_reads": map_reads_launches,
+         "launches_pipeline": workflow_launches["radix_sort"], **sort_rec}]
     for name, p in probes.PROBES.items():
         records.append({
             "name": f"probe_{name}", "route": "cuda",

@@ -35,10 +35,12 @@ import torch
 from .. import dna, native, resolve_device
 from ..ops import sort as srt
 
-# reads a device batch.  The mapper's largest planes are [N, L - k + 1] and
-# [N, L] int64 (about 10 kB a read at 150 bp, all planes together); rows
-# are independent, so the batch only bounds the peak
-DEFAULT_CHUNK = 131_072
+# k-mer windows a device batch: 131 072 reads of 150 bases at k = 31.  The
+# mapper's largest planes are [N, L - k + 1] and [N, L] int64 (about 10 kB
+# a read at 150 bp, all planes together), so a batch is sized by windows,
+# not reads: long reads (map_reads) make batches of fewer reads at about
+# the same peak.  Rows are independent, so the batch only bounds the peak
+CHUNK_WINDOWS = 131_072 * 120
 
 _COMP_TABLE = np.zeros(256, np.uint8)
 for _a, _b in zip(b"ACGTN", b"TGCAN"):
@@ -181,11 +183,12 @@ class MapResult:
 def map_reads(ix: ContigIndex, codes: np.ndarray, ascii_seq: np.ndarray,
               lengths: np.ndarray, seed_kmer_num: int,
               min_identity: float, search_start=1,
-              chunk: int = DEFAULT_CHUNK) -> MapResult:
+              chunk: int | None = None) -> MapResult:
     """Map each read (first qualifying seed, ungapped extension): on the
-    index's device ``chunk`` reads at a time for the torch engine, in the
-    C++ engine for the native one.  Fields other than ``mapped`` are
-    meaningful only where ``mapped`` is set.
+    index's device ``chunk`` reads at a time for the torch engine (by
+    default as many as hold CHUNK_WINDOWS k-mer windows), in the C++ engine
+    for the native one.  Fields other than ``mapped`` are meaningful only
+    where ``mapped`` is set.
 
     search_start: scalar or per-read array of 1-based positions to begin the
     seed scan (map_reads' second-alignment pass uses align_read_end+1,
@@ -201,6 +204,9 @@ def map_reads(ix: ContigIndex, codes: np.ndarray, ascii_seq: np.ndarray,
                          read_start=rs, read_end=re_, contig_start=cs,
                          contig_end=ce, direct=dr, identity=ident)
     dev = ix.kmers.device
+    if chunk is None:
+        windows = max(codes.shape[1] - ix.ksize + 1, 1)
+        chunk = max(1, CHUNK_WINDOWS // windows)
     outs = [np.zeros(N, bool), *(np.zeros(N, np.int32) for _ in range(5)),
             np.zeros(N, np.uint8), np.zeros(N, np.float32)]
     for off in range(0, N, chunk):

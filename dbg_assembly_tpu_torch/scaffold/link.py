@@ -1,8 +1,7 @@
-"""Contig link graph for the scaffold readout (link_scaffold).
+"""Contig link graph for the scaffold readouts (link_scaffold, link_contig,
+link_supertig).
 
-Counterpart of dbg_assembly_tpu/scaffold/link.py, the parts link_scaffold
-runs (the read-ends parser, the strong interleaving pass and the small-node
-removal serve link_contig and link_supertig, not ported yet).  Parity:
+Counterpart of dbg_assembly_tpu/scaffold/link.py.  Parity:
 link_scaffold/link_func.cpp + link_scaffold.cpp.  The contig graph is small
 (10^3-10^6 nodes), so this stage runs on the host with the reference's
 exact semantics:
@@ -28,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+
 
 def c_div(a: int, b: int) -> int:
     """C++ integer division (truncation toward zero)."""
@@ -195,6 +195,44 @@ class LinkGraph:
                         self.delete_link(i, end_node)
                         self.counters["interleave"] += 1
 
+    def strong_remove_interleaving(self):
+        """Parity: strong_remove_interleaving_links (link_func.cpp:587-666)
+        — 2-rank BFS variant designed for PacBio scaffolding (unspecific
+        mapping yields missing hits).  Dead code in the reference program
+        (call commented out at link_supertig.cpp:209) but part of the
+        component surface.
+
+        For every live node with 2..3 out-links: collect each direct
+        successor's descendants to rank 2; any direct successor that also
+        appears as a descendant (of any successor, itself included) gets
+        its direct link from the start node removed, in ascending target
+        order (std::map iteration)."""
+        RANK_NUM = 2
+        for i in range(1, self.n):
+            if self.deleted[i] or not (2 <= self.link[i] <= 3):
+                continue
+            ids, _ = self.linked_ids(i)
+            children = []
+            for j in ids:
+                vec = []
+                cur = [j]
+                for _ in range(RANK_NUM):
+                    nxt = []
+                    for node in cur:
+                        lk, _ = self.linked_ids(node)
+                        nxt.extend(lk)
+                        vec.extend(lk)
+                    cur = nxt
+                children.append(vec)
+            targets = set()
+            for vec in children:
+                for t in ids:
+                    if t in vec:
+                        targets.add(t)
+            for t in sorted(targets):
+                self.delete_link(i, t)
+                self.counters["interleave"] += 1
+
     def remove_repeat_nodes(self):
         """Parity: remove_repeat_nodes (link_func.cpp:713-726)."""
         repeat = []
@@ -207,6 +245,20 @@ class LinkGraph:
                 self.deleted[p] = True
                 repeat.append(p)
         return repeat
+
+    def remove_small_nodes(self, contig_seqs, insert_size: int):
+        """Parity: remove_small_nodes (link_func.cpp:729-743) — present in
+        the reference but commented out of link_scaffold's main flow."""
+        small = []
+        for i in range(1, self.n):
+            if (not self.deleted[i]) and i % 2 == 1 \
+                    and len(contig_seqs[i]) < insert_size // 2:
+                small.append(i)
+                self.deleted[i] = True
+                p = get_pair_id(i)
+                self.deleted[p] = True
+                small.append(p)
+        return small
 
     def remove_links_from_deleted(self):
         """Parity: remove_links_from_deleted_nodes (link_func.cpp:747-785)."""
@@ -258,6 +310,44 @@ class LinkGraph:
             if self.link[nxt] != 1:
                 break
         return out
+
+
+def parse_read_ends_map_file(path: str, g: LinkGraph):
+    """Parity: parse_read_ends_map_file (link_func.cpp:141-220) — gap from
+    read coordinates, no acceptance window (single-read two-part links)."""
+    import gzip
+    with gzip.open(path, "rb") as f:
+        for line in f:
+            if line[:1] == b"#":
+                continue
+            v = [t for t in line.replace(b"\t", b" ").rstrip(b"\n")
+                 .split(b" ") if t]
+            if len(v) < 19:
+                continue
+            d1, d2 = v[8], v[18]
+            c1, c2 = v[4], v[14]
+            gap = int(v[12]) - int(v[3]) - 1
+            if d1 == b"F" and d2 == b"F":
+                a1 = ctg_str2id(c1); a2 = a1 + 1
+                a3 = ctg_str2id(c2); a4 = a3 + 1
+                g.counters["FF"] += 1
+            elif d1 == b"R" and d2 == b"R":
+                a2 = ctg_str2id(c1); a1 = a2 + 1
+                a4 = ctg_str2id(c2); a3 = a4 + 1
+                g.counters["RR"] += 1
+            elif d1 == b"F" and d2 == b"R":
+                a1 = ctg_str2id(c1); a2 = a1 + 1
+                a4 = ctg_str2id(c2); a3 = a4 + 1
+                g.counters["FR"] += 1
+            elif d1 == b"R" and d2 == b"F":
+                a2 = ctg_str2id(c1); a1 = a2 + 1
+                a3 = ctg_str2id(c2); a4 = a3 + 1
+                g.counters["RF"] += 1
+            else:
+                g.counters["wrong"] += 1
+                continue
+            g.add(a1, a3, gap)
+            g.add(a4, a2, gap)
 
 
 def parse_pair_map_file(path: str, g: LinkGraph, contig_seqs,

@@ -70,9 +70,17 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
                  lambda: cli.main(["clean_adapter", fq, fq + ".gz", "s"]),
                  lambda: cli.main(["map_pair", fa, lib]),
                  lambda: cli.main(["map_pair", "--engine", "torch", fa, lib]),
-                 lambda: cli.main(["link_scaffold", fa, lib])):
+                 lambda: cli.main(["link_scaffold", fa, lib]),
+                 lambda: cli.main(["map_reads", fa, lib]),
+                 lambda: cli.main(["map_reads", "--engine", "torch",
+                                   "--device", "cuda", fa, lib]),
+                 lambda: cli.main(["link_contig", fa, lib]),
+                 lambda: cli.main(["link_supertig", fa, lib]),
+                 lambda: cli.main(["pipeline", "-w", str(tmp_path / "w"),
+                                   f"{fq},{fq},400"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    assert not os.path.exists(tmp_path / "w")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
