@@ -115,6 +115,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      map_min_read 100, each on the card and with ``--device cpu``: every
      file under the two work dirs equal.  ``--profile`` adds (a) once more
      under torch.profiler and its kmerfreq step by step.
+  16. the mesh (run last): D = 4 shard slots on the machine's cards
+     (parallel/mesh.data_mesh; on one card all four share it), the layout
+     printed, each run against the single-device run an earlier phase
+     made: (a) ``debruijn_contig -k 31 -i 0.02 -M 125 --mesh 4`` == phase
+     8's ``--readout doubling`` files and run log, and its node table
+     (GraphBuilder(mesh)) == phase 9's; (b) ``correct_error_reads -k 17 -j
+     1 --mesh 4`` (the 2 GiB table as four slots) == phase 11's torch
+     engine outputs, with the fallback share; (c) ``map_pair ... --mesh
+     4`` == phase 13's torch engine files; (d) count_halo_sharded of the
+     genome as one sequence (k 31, 4 tiles) == its single-device count;
+     (e) phase 15 (b)'s 200 kb workflow (run_full, ``--readout
+     doubling``) with mesh_devices=4 == mesh_devices=0 on the card, every
+     file.  Each run prints its wall, peak device memory, the chop's and
+     the sort's launches (> 0 where the path runs them: both in (a), (d)
+     and (e), the sort in (c)) and the bytes the collectives moved
+     between slots; ``--profile`` adds (a) under torch.profiler, with the
+     device-to-device copies and concatenations of the exchange.  Then
+     the chop and the radix sort at the shapes the 4-slot ingest gives
+     them (one slot's quarter of an ingest batch, its owner bucketing on
+     3 bits, one owner's arrivals), each == its plain version and timed.
 Bounds (bound_ms) are the larger of the bytes each kernel must move (each
 input read once, each output written once) over the published 3.35 TB/s
 and its operations over 67 T a second (the published float32 rate outside
@@ -833,10 +853,16 @@ def phase_profile(workdir: str, lib: str, cz: str, files: list[str],
 
         chop_ms, chop_n = of("chop_kernel")
         sort_ms, sort_n = of("hist_kernel", "scan_kernel", "onesweep_kernel")
+        # what an exchange between slots costs: copies between devices, and
+        # the concatenations that join the arrivals on one card
+        copy_ms, copy_n = of("Memcpy DtoD", "Memcpy PtoP")
+        cat_ms, cat_n = of("CatArrayBatchedCopy")
         _log(f"profile {title}: wall {wall:.3f} s (profiled), device busy "
              f"{busy:.3f} ms, idle share {1 - busy / 1e3 / wall:.4f}; chop "
              f"{chop_ms:.3f} ms ({chop_n} launches), radix sort "
-             f"{sort_ms:.3f} ms ({sort_n} kernel launches); top: " + "; ".join(
+             f"{sort_ms:.3f} ms ({sort_n} kernel launches); device-to-device "
+             f"copies {copy_ms:.3f} ms ({copy_n}), concatenations "
+             f"{cat_ms:.3f} ms ({cat_n}); top: " + "; ".join(
                  f"{key[:60]} {ms:.3f} ms x{n}" for ms, n, key in items[:8]))
 
 
@@ -1577,6 +1603,244 @@ def phase_doubling_steps(table, workdir: str) -> None:
         + f"; total {sum(sec for _, sec in steps):.3f}")
 
 
+# ---------------------------------------------------------------- phase 16
+MESH_SLOTS = 4
+CONTIG_SUFFIXES = (".contig.kmer.freq", ".contig.tip.fa",
+                   ".contig.lowedge.fa", ".contig.bubble.fa",
+                   ".contig.seq.fa", ".contig.seq.depth",
+                   ".contig.small.fa", ".contig.small.depth")
+
+
+def _mesh_run(title: str, kernels: dict, fn, need=("chop", "radix_sort"),
+              collectives: bool = True):
+    """fn with every launch count and the collectives' byte count set to 0
+    just before it and read just after: logs its wall, peak device
+    memory, launches and bytes moved; the kernels in ``need`` must
+    launch, and the collectives must move bytes where ``collectives``.
+    Returns (fn's result, launches)."""
+    from dbg_assembly_tpu_torch.parallel import mesh as meshmod
+    for mod in kernels.values():
+        mod.launches = 0
+    meshmod.bytes_moved = 0
+    out = []
+    _phase_wall(title, lambda: out.append(fn()))
+    counts = {n: m.launches for n, m in kernels.items()}
+    moved = meshmod.bytes_moved
+    _log(f"{title}: kernel launches {counts}, the collectives moved {moved} "
+         f"B ({moved / 2**30:.3f} GiB)")
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"{title} never launched the {name} kernel")
+    if collectives and moved <= 0:
+        raise AssertionError(f"{title}: the collectives moved nothing")
+    return out[0], counts
+
+
+def _tree(root: str) -> dict:
+    """sha256 of every file under root by relative path (.gz
+    decompressed), root's own path replaced."""
+    import gzip
+    import hashlib
+    out = {}
+    for sub, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(sub, n)
+            with (gzip.open(p, "rb") if p.endswith(".gz") else
+                  open(p, "rb")) as f:
+                data = f.read().replace(root.encode(), b"<root>")
+            out[os.path.relpath(p, root)] = hashlib.sha256(data).hexdigest()
+    return out
+
+
+def phase_mesh(workdir: str, lib: str, files: list[str], n_reads: int,
+               table, dprefix: str, cfiles: list[str], contigs: str,
+               kernels: dict) -> dict:
+    """The distributed path at D = 4 slots on the machine's cards, each
+    run against the single-device run an earlier phase made: (a) the
+    contig stage == phase 8's doubling files and phase 9's node table;
+    (b) correction == phase 11's torch engine outputs; (c) map_pair ==
+    phase 13's torch engine files; (d) count_halo_sharded of the genome
+    as one sequence == its single-device count; (e) the 200 kb workflow
+    with mesh_devices=4 == mesh_devices=0 on the card.  Returns the
+    chop's and the sort's launches summed over the runs."""
+    from dbg_assembly_tpu_torch import cli, dna, workflow
+    from dbg_assembly_tpu_torch.contig import pipeline
+    from dbg_assembly_tpu_torch.correct import device as cdev
+    from dbg_assembly_tpu_torch.kmer.count import KmerCounter
+    from dbg_assembly_tpu_torch.parallel import halo
+    from dbg_assembly_tpu_torch.parallel import mesh as meshmod
+    from tools.simulate_reads import generate_dataset, make_genome
+    mesh = meshmod.data_mesh(MESH_SLOTS)
+    _log(f"mesh: {mesh.layout()} ({', '.join(map(str, mesh.devices))})")
+    totals = dict.fromkeys(kernels, 0)
+
+    def run(title, fn, **kw):
+        res, counts = _mesh_run(title, kernels, fn, **kw)
+        for name, n in counts.items():
+            totals[name] += n
+        return res
+
+    # (a) the contig stage, and its node table
+    mprefix = os.path.join(workdir, "asm_mesh")
+    with open(os.path.join(workdir, "contig_mesh.log"), "w") as logf, \
+            contextlib.redirect_stderr(logf):
+        run("(a) debruijn_contig -k 31 -i 0.02 -M 125 --mesh 4",
+            lambda: cli.main(["debruijn_contig", "-k", "31", "-i", "0.02",
+                              "-M", "125", "--mesh", str(MESH_SLOTS), "-o",
+                              mprefix, "--device", "cuda", lib]))
+    bad = [s for s in CONTIG_SUFFIXES
+           if _digest(mprefix + s) != _digest(dprefix + s)]
+    logs = []
+    for name in ("contig_mesh.log", "contig_doubling.log"):
+        with open(os.path.join(workdir, name)) as f:
+            logs.append(re.sub(r"(Run time: )[0-9.e+-]+", r"\1X", f.read())
+                        .replace(mprefix, "P").replace(dprefix, "P"))
+    if bad or logs[0] != logs[1]:
+        raise AssertionError(f"(a) --mesh 4 != --readout doubling: {bad}, "
+                             f"run logs equal: {logs[0] == logs[1]}")
+    lens = _fasta_lengths(mprefix + ".contig.seq.fa")
+    _log(f"(a) --mesh 4 == phase 8's --readout doubling: "
+         f"{len(CONTIG_SUFFIXES)} files and the run log; {len(lens)} "
+         f"contigs, N50 {_n50(lens)}")
+    mt = run("(a) node table through GraphBuilder(mesh)",
+             lambda: pipeline._ingest(files, 1, 31, 250, "cuda",
+                                      mesh=mesh).finalize())
+    fields = ("kmers", "lcnt", "rcnt", "first_idx", "counts")
+    bad = [f for f in fields if not np.array_equal(getattr(mt, f),
+                                                   getattr(table, f))]
+    if bad or (mt.total_kmers, mt.total_reads) != (table.total_kmers,
+                                                   table.total_reads):
+        raise AssertionError(f"(a) mesh node table != single-device: {bad}")
+    _log(f"(a) mesh node table == single-device: {mt.n_nodes} nodes, "
+         f"{', '.join(fields)}, totals equal")
+    del mt
+
+    # (b) correction with the table in four slots
+    cz = lib + ".kmer.freq.cz"
+    mlib, mfiles = _mirror(files, os.path.join(workdir, "ecoli", "mesh"))
+    cdev.reset_counts()
+    run("(b) correct_error_reads -k 17 -j 1 --mesh 4",
+        lambda: cli.main(["correct_error_reads", "-k", "17", "-j", "1",
+                          "--mesh", str(MESH_SLOTS), cz, mlib, "--device",
+                          "cuda"]), need=())
+    c = dict(cdev.counts)
+    _log(f"(b) {n_reads} reads: {c['batches']} slot batches, {c['waves']} "
+         f"waves, {c['bbt_calls']} beam calls, {c['trips']} trips, "
+         f"{c['host_reads']} host reads; fallback {c['fallback']} reads, "
+         f"share {c['fallback'] / n_reads:.6f} (the chop and the sort are "
+         "not on this path)")
+    got, want = _correct_outputs(mfiles), _correct_outputs(cfiles)
+    if got != want:
+        raise AssertionError("(b) --mesh 4 != the torch engine: "
+                             f"{[k for k in want if got.get(k) != want[k]]}")
+    _log(f"(b) --mesh 4 == phase 11's torch engine on {len(want)} outputs")
+
+    # (c) map_pair with the reads sharded
+    where = os.path.join(workdir, "map", "mesh")
+    plib, _ = _mirror(files, where)
+    mdir = os.path.join(where, "out")
+    run("(c) map_pair -k 31 -s 5 -l 125 -r 100 -i 0.97 --mesh 4",
+        lambda: cli.main(MAP_ARGV + ["-o", mdir, "--mesh", str(MESH_SLOTS),
+                                     "--device", "cuda", contigs, plib]),
+        need=("radix_sort",), collectives=False)
+    base = os.path.basename(files[0])
+    sufs = (".map_pair.2ctg.gz", ".map_pair.1ctg.gz", ".map_pair.gap.gz",
+            ".map_pair.stat")
+    tdir = os.path.join(workdir, "map", "torch", "out")
+    bad = [s for s in sufs if _digest(os.path.join(mdir, base + s))
+           != _digest(os.path.join(tdir, base + s))]
+    if bad:
+        raise AssertionError(f"(c) map_pair --mesh 4 != phase 13's: {bad}")
+    _log(f"(c) map_pair --mesh 4 == phase 13's torch engine: {len(sufs)} "
+         "files (the index copied to each slot: no collective)")
+
+    # (d) the genome as one sequence, cut along its bases
+    genome = dna.ascii_to_codes(make_genome(GENOME_LEN, seed=42))
+    codes, lengths = halo.pad_seqs_for_mesh([genome], MESH_SLOTS, 31)
+    uniq, counts, _, stats = run(
+        f"(d) count_halo_sharded, one sequence of {GENOME_LEN} bases, k 31, "
+        f"{MESH_SLOTS} tiles", lambda: halo.count_halo_sharded(
+            codes, lengths, ksize=31, mesh=mesh,
+            capacity=codes.size // MESH_SLOTS + 64))
+    u = torch.cat([x.cpu() for x in uniq]).numpy().view(np.uint64)
+    cn = torch.cat([x.cpu() for x in counts]).numpy()
+    order = np.argsort(u)
+    kc = KmerCounter(31, device="cuda")
+    kc.add(genome[None], np.array([len(genome)], np.int32))
+    su, sc, total = kc.finalize()
+    if not (np.array_equal(u[order], su) and np.array_equal(cn[order], sc)
+            and stats["total_kmers"] == total and stats["dropped"] == 0):
+        raise AssertionError("(d) count_halo_sharded != single-device count")
+    _log(f"(d) count_halo_sharded == KmerCounter on the card: {len(su)} "
+         f"species, {total} k-mers, {stats['dropped']} dropped")
+
+    # (e) the small workflow, mesh_devices=4 against 0
+    d = os.path.join(workdir, "mesh_small")
+    libs = generate_dataset(os.path.join(d, "sim"), 200_000, 150, 20.0,
+                            (400, 800), seed=7)["libs"]
+
+    def workflow_run(slots):
+        cfg = workflow.PipelineConfig(correct_k=13, init_hash_size=0.01,
+                                      map_min_read=100, readout="doubling",
+                                      mesh_devices=slots, device="cuda")
+        with open(os.devnull, "w") as null, contextlib.redirect_stderr(null):
+            return workflow.run_full(libs, cfg, os.path.join(d, f"m{slots}"))
+
+    _phase_wall("(e) run_full, 200 kb, mesh_devices=0, --readout doubling",
+                lambda: workflow_run(0))
+    run("(e) run_full, 200 kb, mesh_devices=4", lambda: workflow_run(4))
+    trees = [_tree(os.path.join(d, f"m{s}")) for s in (0, MESH_SLOTS)]
+    bad = sorted(set(trees[0]) ^ set(trees[1])) + [
+        k for k in trees[0] if k in trees[1] and trees[0][k] != trees[1][k]]
+    if bad:
+        raise AssertionError(f"(e) mesh_devices=4 != 0: {bad}")
+    _log(f"(e) run_full mesh_devices=4 == mesh_devices=0 on the card: "
+         f"{len(trees[0])} files")
+    return totals
+
+
+def phase_mesh_kernels(chop, srt, kern: dict, sort_rec: dict,
+                       files: list[str]) -> None:
+    """The chop and the radix sort at the shapes the 4-slot ingest gives
+    them: one slot's quarter of an ingest batch (the chop with edges), its
+    owner bucketing (the sort on the owners' 3 bits, with the index) and
+    one owner's arrivals from the four slots (62 bits, with the index),
+    each == its plain version and timed beside it; the numbers go into
+    the kernels' records under _mesh_slot, _mesh_route and _mesh_owner."""
+    from dbg_assembly_tpu_torch.io import fastq
+    from dbg_assembly_tpu_torch.ops.chop import SENTINEL
+    c = torch.from_numpy(fastq.read_batch(files[0]).codes[:100_000]).cuda()
+    L = c.shape[1]
+    lengths = torch.full((c.shape[0],), L, dtype=torch.int32, device="cuda")
+    n = c.shape[0] // MESH_SLOTS
+    codes, lens = c[:n].contiguous(), lengths[:n]
+    got = chop.chop(codes, lens, 31, True)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, chop.chop_plain(codes, lens, 31, True))
+    if err != 0:
+        raise AssertionError(f"chop kernel differs from chop_plain at one "
+                             f"slot's {n}x{L}: max abs err {err}")
+    what = f"chop {n}x{L} k=31 edges=True (one of {MESH_SLOTS} slots)"
+    ms, plain_ms = _turns(what, lambda: chop.chop(codes, lens, 31, True),
+                          lambda: chop.chop_plain(codes, lens, 31, True))
+    bound_ms, bound_by = _bound(n * L + 4 * n + n * (L - 30) * 10)
+    kern.update({"ms_mesh_slot": ms, "plain_ms_mesh_slot": plain_ms,
+                 "bound_ms_mesh_slot": bound_ms,
+                 "bound_by_mesh_slot": bound_by})
+    flat = got[0].reshape(-1)
+    owner = torch.where(flat == SENTINEL, MESH_SLOTS, flat % MESH_SLOTS)
+    per = torch.bincount(owner, minlength=MESH_SLOTS + 1)[:MESH_SLOTS]
+    _log(f"owner shares of one slot's {int(per.sum())} k-mers (k-mer mod "
+         f"{MESH_SLOTS}): {(per / per.sum()).tolist()}")
+    _sort_shape(srt, sort_rec, "mesh_route", owner, MESH_SLOTS.bit_length(),
+                True)
+    keys = chop.chop(c, lengths, 31)[0].reshape(-1)
+    _sort_shape(srt, sort_rec, "mesh_owner", keys[keys % MESH_SLOTS == 0],
+                62, True)
+    del c, lengths, codes, lens, got, flat, owner, keys
+    torch.cuda.empty_cache()
+
+
 def _timed(fn, *args) -> float:
     t = time.perf_counter()
     fn(*args)
@@ -1653,6 +1917,10 @@ def main() -> int:
                           lambda: _run_workflow(
                               os.path.join(workdir, "prof_workflow"),
                               soiled)))
+            extra.append(("debruijn_contig --mesh 4 (phase 16 a)",
+                          ["debruijn_contig", "-k", "31", "-i", "0.02", "-M",
+                           "125", "--mesh", str(MESH_SLOTS), "-o",
+                           os.path.join(workdir, "prof_mesh"), lib]))
             phase_profile(workdir, lib, cz, files, extra)
             phase_correct_steps(cz, cfiles)
             phase_clean_map_steps(workdir, soiled, files, contigs)
@@ -1660,20 +1928,27 @@ def main() -> int:
         phase_doubling_oracle(workdir, prefix, dprefix)
         table = phase_oracle(files, lib)
         phase_doubling_steps(table, workdir)
+        mesh_launches = phase_mesh(workdir, lib, files, n_reads, table,
+                                   dprefix, cfiles, contigs, kernels)
+        for name, n in mesh_launches.items():
+            launches[name] += n
+        phase_mesh_kernels(chop, srt, kern, sort_rec, files)
 
     records = [
         {"name": "chop", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/chop.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_chop.py:81",
          "launches": launches["chop"],
-         "launches_pipeline": workflow_launches["chop"], **kern},
+         "launches_pipeline": workflow_launches["chop"],
+         "launches_mesh": mesh_launches["chop"], **kern},
         {"name": "radix_sort", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
          "launches": launches["radix_sort"],
          "launches_map_pair": map_launches,
          "launches_map_reads": map_reads_launches,
-         "launches_pipeline": workflow_launches["radix_sort"], **sort_rec}]
+         "launches_pipeline": workflow_launches["radix_sort"],
+         "launches_mesh": mesh_launches["radix_sort"], **sort_rec}]
     for name, p in probes.PROBES.items():
         records.append({
             "name": f"probe_{name}", "route": "cuda",

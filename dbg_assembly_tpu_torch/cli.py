@@ -119,8 +119,8 @@ def _correct(argv):
                     "engine on --device; native = the shared C++ engine; "
                     "python = the host engine")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="sharded corrector over N devices (not ported "
-                    "yet)")
+                    help="sharded corrector: the table over N slots on "
+                    "--device (slot d on card d mod the card count)")
     _device_flag(ap)
     ap.add_argument("cz")
     ap.add_argument("lib")
@@ -192,8 +192,8 @@ def _debruijn_contig(argv):
                     "byte-exact serial replay) or 'doubling' (bulk pruning "
                     "+ pointer-doubling chains on --device)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="distributed contig stage over N devices (not "
-                    "ported yet)")
+                    help="distributed contig stage over N slots on --device "
+                    "(implies --readout doubling)")
     _device_flag(ap)
     ap.add_argument("lib")
     a = ap.parse_args(argv)
@@ -227,8 +227,8 @@ def _map_pair(argv):
                     help="mapper: torch = the index and mapper on --device; "
                     "native = the shared C++ engine")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="shard read batches over N devices (not ported "
-                    "yet)")
+                    help="shard read batches over N slots on --device "
+                    "(implies --engine torch)")
     _device_flag(ap)
     ap.add_argument("contig_fa")
     ap.add_argument("lib")

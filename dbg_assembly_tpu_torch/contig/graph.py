@@ -39,6 +39,29 @@ def _chop_with_edges(codes: torch.Tensor, lengths: torch.Tensor,
     return chop(codes, lengths, ksize, edges=True)
 
 
+def _node_records(sk: torch.Tensor, order: torch.Tensor, left: torch.Tensor,
+                  right: torch.Tensor):
+    """Per-run records of sorted k-mers sk = keys[order] (no sentinel),
+    left/right the flat neighbour codes of the unsorted keys.  Returns
+    (uniq [M] int64, lcnt [M, 4] int32, rcnt [M, 4] int32, head [M] int64
+    = order at each run's start, counts [M] int32)."""
+    n = sk.shape[0]
+    first = torch.ones(n, dtype=torch.bool, device=sk.device)
+    first[1:] = sk[1:] != sk[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    M = starts.shape[0]
+    seg = torch.cumsum(first, 0) - 1
+    counters = []
+    for side in (left, right):
+        # neighbour code 4 (none) lands in a fifth column that is dropped
+        key = seg * 5 + side[order].to(torch.int64)
+        cnt = torch.bincount(key, minlength=M * 5).view(M, 5)[:, :4]
+        counters.append(cnt.to(torch.int32))
+    ends = torch.cat([starts[1:], starts.new_tensor([n])])
+    return (sk[starts], counters[0], counters[1], order[starts],
+            (ends - starts).to(torch.int32))
+
+
 def _aggregate_batch(codes: torch.Tensor, lengths: torch.Tensor,
                      ksize: int, base_index: int):
     """Chop one batch and reduce it per distinct k-mer.
@@ -53,23 +76,11 @@ def _aggregate_batch(codes: torch.Tensor, lengths: torch.Tensor,
     # 2k + 1 bits: the sentinel's low bits order it after every k-mer
     sk, order = radix.sort(kmers.reshape(-1), 2 * ksize + 1,
                            return_index=True)
-    sk, order = sk[:n_valid], order[:n_valid]
-    first = torch.ones(n_valid, dtype=torch.bool, device=sk.device)
-    first[1:] = sk[1:] != sk[:-1]
-    starts = torch.nonzero(first).squeeze(1)
-    M = starts.shape[0]
-    seg = torch.cumsum(first, 0) - 1
-    counters = []
-    for side in (left, right):
-        # neighbour code 4 (none) lands in a fifth column that is dropped
-        key = seg * 5 + side.reshape(-1)[order].to(torch.int64)
-        cnt = torch.bincount(key, minlength=M * 5).view(M, 5)[:, :4]
-        counters.append(cnt.clamp_(max=255).to(torch.int32))
-    ends = torch.cat([starts[1:], starts.new_tensor([n_valid])])
+    uniq, lcnt, rcnt, head, counts = _node_records(
+        sk[:n_valid], order[:n_valid], left.reshape(-1), right.reshape(-1))
     # the stable sort keeps stream order inside a run: its head is the min
-    first_idx = base_index + order[starts]
-    return (sk[starts], counters[0], counters[1], first_idx,
-            (ends - starts).to(torch.int32), n_valid)
+    return (uniq, lcnt.clamp_(max=255), rcnt.clamp_(max=255),
+            base_index + head, counts, n_valid)
 
 
 @dataclass
@@ -135,17 +146,27 @@ def _merge_parts(parts, ksize: int):
 
 class GraphBuilder:
     """Streaming builder on ``device``: feed read batches, finalize to a
-    NodeTable."""
+    NodeTable.
+
+    mesh (parallel/mesh.Mesh): the distributed path in place of
+    ``device``: each batch's rows shard over the slots, k-mers route to
+    their owner slot (parallel/count_sharded.graph_ingest_step_exact) and
+    each slot merges its own records; finalize() equals the single-device
+    builder's, array for array."""
 
     def __init__(self, ksize: int, max_read_len: int = 250,
-                 batch_reads: int = 100_000, device="cuda"):
+                 batch_reads: int = 100_000, device="cuda", mesh=None):
         if not 1 <= ksize <= 31:
             raise ValueError(f"k={ksize} outside 1..31")
         self.ksize = ksize
         self.max_read_len = max_read_len
         self.batch_reads = batch_reads
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices[0]
         self.parts = []
+        # the mesh's records, a list a slot, each on its slot's device
+        self.slot_parts = [[] for _ in range(mesh.n)] if mesh else []
         self.stream_pos = 0       # global k-mer position counter
         self.total_kmers = 0
         self.total_reads = 0
@@ -191,6 +212,9 @@ class GraphBuilder:
             self._segments.append(
                 (self.stream_pos, P,
                  self.read_seq + off + np.flatnonzero(keep)))
+            if self.mesh is not None:
+                self._add_mesh(cb, lb)
+                continue
             ct = torch.from_numpy(np.ascontiguousarray(cb, np.uint8))
             lt = torch.from_numpy(np.ascontiguousarray(lb, np.int32))
             *rec, n_valid = _aggregate_batch(
@@ -203,7 +227,49 @@ class GraphBuilder:
                 self.parts = _merge_parts(self.parts, self.ksize)
         self.read_seq += len(codes)
 
+    def _add_mesh(self, cb: np.ndarray, lb: np.ndarray) -> None:
+        from ..parallel import count_sharded
+        from ..parallel import mesh as meshmod
+        k = self.ksize
+        D = self.mesh.n
+        n_rows = len(cb)
+        # pad rows have length 0: no valid window, no position recorded
+        cs, ls = meshmod.shard_batch(
+            self.mesh,
+            meshmod.pad_to_multiple(np.ascontiguousarray(cb, np.uint8), D),
+            meshmod.pad_to_multiple(np.ascontiguousarray(lb, np.int32), D))
+        *rec, n_unique, stats = count_sharded.graph_ingest_step_exact(
+            cs, ls, self.stream_pos, ksize=k, mesh=self.mesh)
+        for d in range(D):
+            part = tuple(r[d] for r in rec)
+            if any(x.shape[0] != n_unique[d] for x in part):
+                raise RuntimeError(
+                    f"shard {d}: record arrays of "
+                    f"{[x.shape[0] for x in part]} rows != reported n_unique "
+                    f"{n_unique[d]}; the merged node table would be corrupt")
+            self.slot_parts[d].append(part)
+            if len(self.slot_parts[d]) >= 8:
+                self.slot_parts[d] = _merge_parts(self.slot_parts[d], k)
+        # advance by the UNPADDED rows, as the single-device builder does
+        self.stream_pos += n_rows * (cb.shape[1] - k + 1)
+        self.total_kmers += stats["total_kmers"]
+        self.total_reads += n_rows
+
+    def _gather_slots(self) -> None:
+        """Each slot's merged records, gathered to the first slot (owners
+        hold disjoint k-mers, so the merge after only orders them).  Every
+        batch gives every slot a part, empty or not."""
+        from ..parallel import mesh as meshmod
+        if self.slot_parts[0]:
+            merged = [_merge_parts(p, self.ksize)[0] for p in self.slot_parts]
+            self.parts = [tuple(meshmod.gather(self.mesh,
+                                               [m[i] for m in merged])
+                                for i in range(5))]
+        self.slot_parts = [[] for _ in range(self.mesh.n)]
+
     def finalize(self) -> NodeTable:
+        if self.mesh is not None:
+            self._gather_slots()
         if not self.parts:
             return NodeTable(np.zeros(0, np.uint64), np.zeros((0, 4), np.int32),
                              np.zeros((0, 4), np.int32), np.zeros(0, np.int64),

@@ -1,13 +1,15 @@
 """debruijn_contig stage: graph build on the device + contig readout.
 
-Counterpart of dbg_assembly_tpu/contig/pipeline.py (single device).  CLI
+Counterpart of dbg_assembly_tpu/contig/pipeline.py.  CLI
 parity with DBG_contig/main.cpp:162-212; writes the full artifact set:
 .contig.seq.fa/.seq.depth, .small.*, .tip.fa, .lowedge.fa, .bubble.fa,
 .kmer.freq.  Two readouts: "exact" replays the reference serially in
 native/assemble_engine.cpp (byte-exact files); "doubling" prunes in bulk
 and resolves chains by pointer doubling on the device
 (contig/pointer_doubling.py; the same records, length ties may be ordered
-differently).
+differently).  A mesh of N slots (mesh_devices) runs the distributed stage:
+the owner-routed ingest and the mesh contig stage, whose files equal the
+doubling readout's.
 """
 
 from __future__ import annotations
@@ -35,15 +37,16 @@ def _read(path: str, fmt: int):
 
 
 def _ingest(files, fmt, ksize, max_read_len, device, ranges=None,
-            lengths_sink=None):
-    """Feed all files into a GraphBuilder on ``device``; the next file is
+            lengths_sink=None, mesh=None):
+    """Feed all files into a GraphBuilder on ``device`` (or sharded over
+    the slots of ``mesh``); the next file is
     parsed on a host thread while the device ingests this one.  ranges:
     per-file (start, end) GLOBAL read-ordinal windows for the degrade
     re-pass (DBGgraph.cpp:337-351 ignore-remaining-reads policy): every
     range is a file prefix, and the builder's ordinals stay pinned to the
     original numbering.  lengths_sink: collects the per-file truncated
     length arrays of the reads ingested (for the run log)."""
-    gb = GraphBuilder(ksize, max_read_len, device=device)
+    gb = GraphBuilder(ksize, max_read_len, device=device, mesh=mesh)
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(_read, files[0], fmt) if files else None
         for i in range(len(files)):
@@ -75,6 +78,10 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
     (record-exact; file order may differ on length ties).
     log_stream: emit the reference-parity run log there (its heartbeat
     cadence follows log_buffer = -b, log_threads = -t).
+    mesh_devices > 0 runs the distributed stage over that many slots on
+    ``device`` (parallel/mesh.data_mesh): the owner-routed ingest and the
+    mesh contig stage (contig/mesh_assemble.py), which implies the
+    doubling readout and writes its files.
 
     Hash enlargement parity: when the distinct-node count exceeds the
     initial capacity (-i x load factor), the reference grows its table x2
@@ -85,10 +92,11 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
     if readout not in ("exact", "doubling"):
         raise ValueError(f"readout must be 'exact' or 'doubling', not "
                          f"{readout!r}")
+    mesh = None
     if mesh_devices:
-        raise NotImplementedError(
-            "the distributed contig stage is not ported yet (ROADMAP Queue 1 "
-            "item 11, distributed)")
+        from ..parallel import mesh as meshmod
+        mesh = meshmod.data_mesh(mesh_devices, device)
+        readout = "doubling"
     if params is None:
         params = AssembleParams(ksize=ksize)
     params.ksize = ksize
@@ -105,7 +113,7 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
 
     file_lengths: list | None = [] if log else None
     gb = _ingest(files, fmt, ksize, max_read_len, device,
-                 lengths_sink=file_lengths)
+                 lengths_sink=file_lengths, mesh=mesh)
     table = gb.finalize()
 
     # ---- enlargement / degrade schedule
@@ -122,7 +130,7 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
             file_lengths = [] if log else None
             gb = _ingest(files, fmt, ksize, max_read_len, device,
                          ranges=schedule.ingest_ranges,
-                         lengths_sink=file_lengths)
+                         lengths_sink=file_lengths, mesh=mesh)
             table = gb.finalize()
             normal = table.kmers != np.uint64(0)
             first_read = gb.stream_to_read(table.first_idx[normal])
@@ -141,7 +149,11 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
         _emit_file_log(log, files, file_lengths, ksize, schedule, gb)
 
     if readout == "doubling":
-        stats = assemble_doubling(table, params, prefix, device)
+        if mesh is not None:
+            from .mesh_assemble import assemble_doubling_mesh
+            stats = assemble_doubling_mesh(table, params, prefix, mesh)
+        else:
+            stats = assemble_doubling(table, params, prefix, device)
         if log:
             log.hash_params(stats.hash_size, stats.total_nodes,
                             stats.hash_conflicts_occ)

@@ -122,20 +122,33 @@ class _Graph:
         self.prio = native.slot_rank(slot_of, size)   # node -> slot rank
 
     def locate(self, nf: np.ndarray) -> np.ndarray:
-        """Canonical k-mer values -> node ids (M = missing or deleted)."""
+        """Canonical k-mer values -> node ids (M = missing or deleted).
+        MeshGraph (mesh_assemble.py) runs _search as a sharded collective
+        program; the mutable deleted mask applies here."""
         nf = np.asarray(nf, np.uint64)
-        idx = np.minimum(np.searchsorted(self.kmers, nf), self.M - 1)
-        found = (self.kmers[idx] == nf) & ~self.deleted[idx]
+        idx = self._search(nf)
+        found = (idx >= 0) & ~self.deleted[np.maximum(idx, 0)]
         return np.where(found, idx, self.M).astype(np.int64)
 
+    def _search(self, nf: np.ndarray) -> np.ndarray:
+        """Static-table search: k-mer values -> sorted-table index or -1."""
+        idx = np.minimum(np.searchsorted(self.kmers, nf), self.M - 1)
+        return np.where(self.kmers[idx] == nf, idx, -1).astype(np.int64)
+
+    def resolve_chains(self, succ: np.ndarray):
+        """_resolve_chains on self.device, as numpy (e, dist, cyclic);
+        MeshGraph runs it sharded."""
+        out = _resolve_chains(torch.from_numpy(succ).to(self.device))
+        return tuple(t.cpu().numpy() for t in out)
+
     def calc_links(self):
-        """calculate_kmer_links (contig.cpp:107-205) in one native pass;
-        also snapshots the tip and branch candidates in slot order, as the
-        reference collects them during this scan."""
+        """calculate_kmer_links (contig.cpp:107-205) in one bulk pass
+        (_links_bulk; MeshGraph runs it sharded); also snapshots the tip
+        and branch candidates in slot order, as the reference collects
+        them during this scan."""
         M = self.M
         (self.l_num[:M], self.r_num[:M], self.l_base[:M], self.r_base[:M],
-         self.depth_stat) = native.links_pass(self.lcnt[:M], self.rcnt[:M],
-                                              self.p.kmer_freq_cutoff)
+         self.depth_stat) = self._links_bulk()
         self.linear[:M] = (self.l_num[:M] == 1) & (self.r_num[:M] == 1)
         no_links = (self.l_num[:M] == 0) & (self.r_num[:M] == 0)
         self.deleted[:M] |= no_links
@@ -149,6 +162,13 @@ class _Graph:
         self.branch_nodes = so[(self.l_num[so] > 1) | (self.r_num[so] > 1)]
         st.tip_candidates = len(self.tip_nodes)
         st.branch_candidates = len(self.branch_nodes)
+
+    def _links_bulk(self):
+        """The O(M) counter pass: link counts (capped at 3), max-depth
+        bases and the 256-bin depth histogram, one native pass."""
+        M = self.M
+        return native.links_pass(self.lcnt[:M], self.rcnt[:M],
+                                 self.p.kmer_freq_cutoff)
 
     def write_kmer_freq(self, path: str):
         with open(path, "w") as f:
@@ -813,15 +833,24 @@ def read_out_contigs(g: _Graph, prefix: str):
                      g.lcnt[node, base]).astype(np.int64)
     # e and dist are meaningful on non-cyclic states only; everything
     # below reads them there alone
-    succ, e, dist, cyclic = resolve_on_device(g, alive)
+    if type(g) is _Graph:
+        succ, e, dist, cyclic = resolve_on_device(g, alive)
+    else:
+        # a subclass (MeshGraph) builds the successor through its own
+        # locate and resolves the chains with its own resolve_chains
+        nf, ndir = g.next_ids(node, sdir, base)
+        nxt = g.locate(nf)
+        ok = alive[node] & (nxt != M) & g.linear[np.minimum(nxt, M)]
+        succ = np.where(ok, 2 * nxt + (ndir == -1), STOP).astype(np.int64)
+        e, dist, cyclic = g.resolve_chains(succ)
 
-    def state_next(s: int):
-        """(next node id, arriving direction) of one directed state."""
-        nd = np.array([1 if s % 2 == 0 else -1], np.int64)
-        nid = np.array([s >> 1], np.int64)
-        b = g.r_base[nid] if s % 2 == 0 else g.l_base[nid]
-        nf1, nd1 = g.next_ids(nid, nd, np.asarray(b, np.int64))
-        return int(g.locate(nf1)[0]), int(nd1[0])
+    def states_next(s: np.ndarray):
+        """(next node ids, arriving directions) of directed states."""
+        right = s % 2 == 0
+        nid = s >> 1
+        b = np.where(right, g.r_base[nid], g.l_base[nid]).astype(np.int64)
+        nf1, nd1 = g.next_ids(nid, np.where(right, 1, -1), b)
+        return g.locate(nf1), nd1
 
     is_state = alive[node]
     # head = alive state, neither it nor its reverse cyclic, reverse has no
@@ -888,8 +917,11 @@ def read_out_contigs(g: _Graph, prefix: str):
         bchar = np.where(head_dir == 1, BASES[lb], C_BASES[lb])
         bdep = depth[hrev]
         head_node = node[head_states]
+        # header boundary info: left = rev(head) stop, right = end stop;
+        # no node is deleted while the chains are written
+        ln_ids, ln_dirs = states_next(head_states ^ 1)
+        rn_ids, rn_dirs = states_next(e[head_states])
         for c in range(n_chains):
-            h = int(head_states[c])
             L = int(L_chain[c])
             o = int(off[c])
             codes = body_codes[o:o + L]
@@ -913,12 +945,10 @@ def read_out_contigs(g: _Graph, prefix: str):
             eadj = _adjust_depth_bytes(eflat).tobytes()
             q = int(seed_pos[c])
             dbytes = eadj[:q + 1] + mid + eadj[q + 1:]
-            # header boundary info: left = rev(head) stop, right = end stop
-            ln_id, ln_dir = state_next(h ^ 1)
-            lkm, lmark, lrep = _boundary_info(g, ln_id, ln_dir)
-            endst = int(e[h])
-            rn_id, rn_dir = state_next(endst)
-            rkm, rmark, rrep = _boundary_info(g, rn_id, rn_dir)
+            lkm, lmark, lrep = _boundary_info(g, int(ln_ids[c]),
+                                              int(ln_dirs[c]))
+            rkm, rmark, rrep = _boundary_info(g, int(rn_ids[c]),
+                                              int(rn_dirs[c]))
             if sdir[seed_state[c]] != 1:
                 # the seed walks canonical-leftward on this chain: the
                 # reference emits the reverse-complement frame

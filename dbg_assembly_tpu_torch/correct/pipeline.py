@@ -13,7 +13,9 @@ decompressed bytes, so the level only trades size for time.
 Engines: "torch" (the device engine, correct/device.py, on ``device``,
 with host fallback for the rows it flags), "native" (the shared C++ batch
 corrector, native/correct_engine.cpp), "python" (the host engine,
-correct/engine.py).  "auto" is "torch".
+correct/engine.py).  "auto" is "torch".  A mesh of N slots (mesh_devices)
+runs the torch engine with the table sharded and the reads data-parallel
+(correct/sharded.py).
 """
 
 from __future__ import annotations
@@ -59,15 +61,29 @@ def load_bitmap_8bit(cz_path: str, ksize: int,
 
 def correct_batch_torch(batch, bitmap: np.ndarray, p: CorrectParams,
                         words=None, chunk: int = DEFAULT_CHUNK,
-                        device="cuda"):
+                        device="cuda", mesh=None):
     """The device engine over a whole batch, ``chunk`` reads at a time,
     with host fallback: every row the engine flags is re-run on the host
     engine from the ORIGINAL read, which keeps the output byte-exact.
     words: the table already on the device (device.bitmap_device), else it
     is uploaded here.  The last chunk is not padded to ``chunk`` rows
-    (torch compiles nothing per shape)."""
-    if words is None:
-        words = dev_engine.bitmap_device(bitmap, resolve_device(device))
+    (torch compiles nothing per shape).  mesh: the sharded engine
+    (sharded.correct_batch_sharded), ``words`` then the table's slots
+    (sharded.shard_bitmap) and a chunk ``chunk`` reads a slot."""
+    if mesh is not None:
+        from . import sharded
+        if words is None:
+            words = sharded.shard_bitmap(mesh, bitmap)
+        chunk *= mesh.n
+
+        def engine(*rows):
+            return sharded.correct_batch_sharded(mesh, *rows, words, p)
+    else:
+        if words is None:
+            words = dev_engine.bitmap_device(bitmap, resolve_device(device))
+
+        def engine(*rows):
+            return dev_engine.correct_batch_device(*rows, words, p)
     n = batch.n_reads
     lengths = batch.lengths.astype(np.int32)
     ones = np.zeros(n, np.int32)
@@ -79,9 +95,9 @@ def correct_batch_torch(batch, bitmap: np.ndarray, p: CorrectParams,
 
     for off in range(0, n, chunk):
         end = min(off + chunk, n)
-        (o, m, d, tl, tr, am, fb) = dev_engine.correct_batch_device(
+        (o, m, d, tl, tr, am, fb) = engine(
             batch.seqs_ascii[off:end], batch.codes[off:end],
-            lengths[off:end], words, p)
+            lengths[off:end])
         ones[off:end] = o
         multis[off:end] = m
         deleteds[off:end] = d
@@ -114,10 +130,11 @@ def _engine(requested: str = "auto") -> str:
 
 def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
                  fmt: int = 1, engine: str = "auto", device="cuda",
-                 words=None, chunk: int = DEFAULT_CHUNK) -> dict:
+                 words=None, chunk: int = DEFAULT_CHUNK, mesh=None) -> dict:
     """Correct one read file and write its .correct.fa.gz and
-    .correct.stat.  engine as in the module docstring; device and words
-    (the table on the device) serve the torch engine."""
+    .correct.stat.  engine as in the module docstring; device, words (the
+    table on the device, or its slots with a mesh) and mesh serve the
+    torch engine."""
     engine = _engine(engine)
     p = params.resolved()
     batch = fastq.read_batch(path, fmt="fq" if fmt == 1 else "fa",
@@ -151,7 +168,8 @@ def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
     elif engine == "torch" and n > 0:
         (ones, multis, deleteds, tls, trs,
          reads_mod) = correct_batch_torch(batch, bitmap, p, words=words,
-                                          chunk=chunk, device=device)
+                                          chunk=chunk, device=device,
+                                          mesh=mesh)
     else:
         corr = ReadCorrector(bitmap, p)
         ones = np.zeros(n, np.int32)
@@ -215,21 +233,29 @@ def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
         fmt: int = 1, engine: str = "auto", device="cuda",
         mesh_devices: int = 0) -> list[dict]:
     """correct_error_reads over every file of the .lib list.  The torch
-    engine puts the table on ``device`` once for all files."""
+    engine puts the table on ``device`` once for all files.  mesh_devices
+    > 0 shards it over that many slots on ``device`` (the k > 17 capacity
+    path), which implies the torch engine."""
     from ..contig.pipeline import read_file_list
 
+    mesh = None
     if mesh_devices:
-        raise NotImplementedError(
-            "the sharded corrector is not ported yet (ROADMAP Queue 1 item "
-            "11, distributed)")
+        from ..parallel import mesh as meshmod
+        from .sharded import shard_bitmap
+        mesh = meshmod.data_mesh(mesh_devices, device)
+        engine = "torch"
     engine = _engine(engine)
     dev = resolve_device(device) if engine == "torch" else None
     if params is None:
         params = CorrectParams()
     bitmap = load_bitmap(cz_path, params.ksize)
-    words = dev_engine.bitmap_device(bitmap, dev) if dev is not None \
-        else None
-    return [correct_file(path, bitmap, params, fmt, engine, dev, words=words)
+    words = None
+    if mesh is not None:
+        words = shard_bitmap(mesh, bitmap)
+    elif dev is not None:
+        words = dev_engine.bitmap_device(bitmap, dev)
+    return [correct_file(path, bitmap, params, fmt, engine, dev, words=words,
+                         mesh=mesh)
             for path in read_file_list(lib_path)]
 
 

@@ -89,11 +89,15 @@ def run(contig_fa: str, lib_path: str, out_dir: str, ksize: int = 31,
         device="cuda") -> list[dict]:
     """map_pair over every pair of files in the .lib list.  engine "torch"
     builds the index and maps on ``device``; "native" runs the C++ engine.
-    Returns each pair's counts (total, diff, same, gap, none)."""
+    mesh_devices > 0 maps the read batches sharded over that many slots on
+    ``device`` (scaffold/sharded.py), the index on each slot, which implies
+    the torch engine.  Returns each pair's counts (total, diff, same, gap,
+    none)."""
+    mesh = None
     if mesh_devices:
-        raise NotImplementedError(
-            "the sharded mapper is not ported yet (ROADMAP Queue 1 item 11, "
-            "distributed)")
+        from ..parallel import mesh as meshmod
+        mesh = meshmod.data_mesh(mesh_devices, device)
+        engine = "torch"
     dev = resolve_device(device) if engine == "torch" else None
     files = read_file_list(lib_path)
     os.makedirs(out_dir, exist_ok=True)
@@ -105,17 +109,22 @@ def run(contig_fa: str, lib_path: str, out_dir: str, ksize: int = 31,
     ids, seqs = read_contig_fasta(contig_fa)
     seqs = [s if len(s) >= min_ctg_len else b"" for s in seqs]
     ix = ixmod.build(seqs, ksize, engine=engine, device=dev)
+    if mesh is not None:
+        from .sharded import replicate
+        ix = replicate(mesh, ix)
     clens = np.array([len(s) for s in seqs], dtype=np.int64)
 
     return [_map_pair_files(files[fi], files[fi + 1], ix, ids, clens,
                             out_dir, seed_kmer_num, min_read_len,
-                            min_identity, fmt)
+                            min_identity, fmt, mesh)
             for fi in range(0, len(files), 2)]
 
 
 def _map_pair_files(f1: str, f2: str, ix, ids, clens, out_dir: str,
                     seed_kmer_num: int, min_read_len: int,
-                    min_identity: float, fmt: int) -> dict:
+                    min_identity: float, fmt: int, mesh=None) -> dict:
+    """mesh: map on its slots, ix then the index's replicas
+    (sharded.replicate)."""
     lead = b"@" if fmt == 1 else b">"
     # the pair's files decode at once (zlib and the parser release the GIL)
     with ThreadPoolExecutor(max_workers=2) as ex:
@@ -128,10 +137,18 @@ def _map_pair_files(f1: str, f2: str, ix, ids, clens, out_dir: str,
     len2 = b2.lengths.astype(np.int64)
     keep = (len1[:n] >= min_read_len) & (len2[:n] >= min_read_len)
 
-    r1 = ixmod.map_reads(ix, b1.codes[:n], b1.seqs_ascii[:n],
-                         b1.lengths[:n], seed_kmer_num, min_identity)
-    r2 = ixmod.map_reads(ix, b2.codes[:n], b2.seqs_ascii[:n],
-                         b2.lengths[:n], seed_kmer_num, min_identity)
+    if mesh is not None:
+        from .sharded import map_reads_sharded
+
+        def mapper(*args):
+            return map_reads_sharded(mesh, ix, *args)
+    else:
+        def mapper(*args):
+            return ixmod.map_reads(ix, *args)
+    r1 = mapper(b1.codes[:n], b1.seqs_ascii[:n], b1.lengths[:n],
+                seed_kmer_num, min_identity)
+    r2 = mapper(b2.codes[:n], b2.seqs_ascii[:n], b2.lengths[:n],
+                seed_kmer_num, min_identity)
 
     out_diff = bytearray(HEADER_PAIR)
     out_same = bytearray(HEADER_ONE)   # reference quirk: 10-col header on

@@ -41,7 +41,7 @@ class PipelineConfig:
     init_hash_size: float = 0.1
     contig_len_cutoff: int = 125
     readout: str = "exact"      # "doubling" = the bulk assembler
-    mesh_devices: int = 0       # > 0: distributed stages (not ported yet)
+    mesh_devices: int = 0       # > 0: sharded correction + contig stage
     # scaffolding defaults (overridden per .para row)
     map_min_ctg: int = 125
     map_min_read: int = 250
@@ -148,11 +148,9 @@ def run_full(raw_libs: list[tuple[str, str, int]], cfg: PipelineConfig,
 
     raw_libs: [(read1, read2, insert_size)] — when para_path is None a
     recipe is generated from insert sizes (shortest first, pairNumCut 3).
+    cfg.mesh_devices > 0 runs correction and the contig stage over that
+    many slots on cfg.device, as the JAX workflow does.
     """
-    if cfg.mesh_devices:
-        raise NotImplementedError(
-            "the distributed stages are not ported yet (ROADMAP Queue 1 "
-            "item 11, distributed)")
     resolve_device(cfg.device)
     os.makedirs(work_dir, exist_ok=True)
     pairs = [(r1, r2) for r1, r2, _ in raw_libs]

@@ -70,14 +70,23 @@ def test_pipeline_matches_jax(lib, tmp_path, init, doublings):
         assert "Alert" in tl
 
 
-def test_unported_options_raise(lib, tmp_path):
-    # the doubling readout is ported (tests/test_torch_doubling.py); the
-    # distributed stage is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.run(lib, str(tmp_path / "m"), mesh_devices=2, device="cpu")
+def test_unported_options_raise(lib, tmp_path, monkeypatch):
+    # every option is ported now: the distributed stage (mesh_devices) runs
+    # and writes the doubling readout's files
+    # (tests/test_torch_mesh_stages.py holds it against JAX's --mesh); on
+    # cuda without a card it raises before it writes anything
+    params = dict(ksize=31, init_hash_size=0.01)
+    tpipe.run(lib, str(tmp_path / "m"), mesh_devices=2, device="cpu",
+              params=TParams(**params))
+    tpipe.run(lib, str(tmp_path / "d"), readout="doubling", device="cpu",
+              params=TParams(**params))
+    _assert_same_files(str(tmp_path / "d"), str(tmp_path / "m"))
     from dbg_assembly_tpu_torch import cli
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["debruijn_contig", "--mesh", "4", "--device", "cpu", lib])
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["debruijn_contig", "--mesh", "4", "-o",
+                  str(tmp_path / "c"), lib])
+    assert not os.path.exists(str(tmp_path / "c") + ".contig.kmer.freq")
 
 
 def test_cli_debruijn_contig(lib, tmp_path):

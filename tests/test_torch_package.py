@@ -25,6 +25,9 @@ def test_no_jax_import():
         "m.startswith(('jax.', 'jaxlib', 'dbg_assembly_tpu.')) "
         "or m == 'dbg_assembly_tpu']\n"
         "assert len(names) >= 15, names\n"
+        "new = {'parallel.mesh', 'parallel.count_sharded', 'parallel.halo', "
+        "'contig.mesh_assemble', 'correct.sharded', 'scaffold.sharded'}\n"
+        "assert {'dbg_assembly_tpu_torch.' + n for n in new} <= set(names)\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -54,6 +57,7 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
     from dbg_assembly_tpu_torch import cli, resolve_device
     from dbg_assembly_tpu_torch.contig.graph import GraphBuilder
     from dbg_assembly_tpu_torch.kmer.count import KmerCounter
+    from dbg_assembly_tpu_torch.parallel.mesh import data_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cz, lib = str(tmp_path / "x.cz"), str(tmp_path / "x.lib")
@@ -77,7 +81,15 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
                  lambda: cli.main(["link_contig", fa, lib]),
                  lambda: cli.main(["link_supertig", fa, lib]),
                  lambda: cli.main(["pipeline", "-w", str(tmp_path / "w"),
-                                   f"{fq},{fq},400"])):
+                                   f"{fq},{fq},400"]),
+                 lambda: data_mesh(4, "cuda"),
+                 lambda: data_mesh(4),
+                 lambda: cli.main(["correct_error_reads", "--mesh", "4", cz,
+                                   lib]),
+                 lambda: cli.main(["debruijn_contig", "--mesh", "4", "-o",
+                                   str(tmp_path / "w"), lib]),
+                 lambda: cli.main(["map_pair", "--mesh", "4", "-o",
+                                   str(tmp_path / "w"), fa, lib])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert not os.path.exists(tmp_path / "w")

@@ -344,11 +344,26 @@ def test_cli_map_pair_link_scaffold(assembly, tmp_path):
     assert out["torch"] == out["jax"]
 
 
-def test_map_pair_mesh_raises(assembly, tmp_path):
+def test_map_pair_mesh_raises(assembly, tmp_path, monkeypatch):
+    """--mesh is ported: the sharded mapper writes the single-device
+    mapper's files (tests/test_torch_mesh_stages.py holds it against JAX's
+    --mesh); on cuda without a card it raises before it writes a file."""
     lib, contigs = assembly
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["map_pair", "--mesh", "2", "--device", "cpu", "-o",
-                   str(tmp_path), contigs, lib])
+    out = {}
+    for name, extra in (("mesh", ["--mesh", "2"]), ("single", [])):
+        mlib = _mirror(lib, tmp_path / name)
+        tcli.main(["map_pair", *extra, "--device", "cpu", "-k", "25", "-r",
+                   "100", "-l", "100", "-i", "0.95", "-o",
+                   str(tmp_path / name / "out"), contigs, mlib])
+        base = os.path.basename(tlib.read_lib(mlib)[0])
+        out[name] = [_read(str(tmp_path / name / "out" / base) + suf)
+                     for suf in MAP_SUFFIXES]
+    assert out["mesh"] == out["single"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.main(["map_pair", "--mesh", "2", "-o", str(tmp_path / "c"),
+                   contigs, lib])
+    assert not os.path.exists(tmp_path / "c")
 
 
 @pytest.mark.gpu

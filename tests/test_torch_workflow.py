@@ -15,6 +15,7 @@ import gzip
 import os
 
 import pytest
+import torch
 
 from dbg_assembly_tpu import cli as jcli
 from dbg_assembly_tpu import workflow as jwf
@@ -103,10 +104,14 @@ def test_pipeline_cli(tmp_path, capsys):
     assert _same_tree(str(tmp_path / "torch"), str(tmp_path / "jax")) > 50
 
 
-def test_mesh_raises(libs, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twf.run_full(libs, twf.PipelineConfig(mesh_devices=2, device="cpu",
-                                              **CFG), str(tmp_path))
+def test_mesh_raises(libs, tmp_path, monkeypatch):
+    """mesh_devices is ported (tests/test_torch_mesh_stages.py runs it
+    against JAX's); its slots on cuda without a card raise before the
+    workflow writes anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        twf.run_full(libs, twf.PipelineConfig(mesh_devices=2, **CFG),
+                     str(tmp_path))
     assert not os.listdir(tmp_path)
 
 
