@@ -135,6 +135,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the chop and the radix sort at the shapes the 4-slot ingest gives
      them (one slot's quarter of an ingest batch, its owner bucketing on
      3 bits, one owner's arrivals), each == its plain version and timed.
+  17. multi-process ingest and the last counting and contig-stage
+     functions (run after phase 16): (a) tools/launch_distributed.py over
+     nccl, one process of 4 slots on the card, on phase 6's pair (-k 31
+     --max-read-len 150 --batch-reads 100000), and (b) over gloo, two
+     processes of 2 slots on the one card (device tensors staged through
+     host memory): each rank's wall, peak device memory, launches
+     (the chop's and the sort's > 0 on every rank), capacity doublings and
+     bytes moved within and across ranks; the union of the .npz shards ==
+     phase 9's node table (kmers, lcnt and rcnt, saturated as its) and
+     .dist.json's total_kmers == its; (c) count_spectrum_fast on 250 000
+     reads x 150 of phase 6's library, k 31, max_freq 255 (the JAX
+     benchmark's batch): card == CPU == the capped histogram of
+     count_unique_fast's counts, with the last run in bin 255 where the
+     batch has no invalid window; CUDA-event ms of the call and of the
+     stats tail, k-mers a second; (d) contig_stage_step on phase 9's table
+     at cut 2: card == CPU, all six outputs, with its wall.
 Bounds (bound_ms) are the larger of the bytes each kernel must move (each
 input read once, each output written once) over the published 3.35 TB/s
 and its operations over 67 T a second (the published float32 rate outside
@@ -1841,6 +1857,183 @@ def phase_mesh_kernels(chop, srt, kern: dict, sort_rec: dict,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 17
+LAUNCH_TIMEOUT_S = 600
+
+
+def _launch_ranks(workdir: str, lib: str, name: str, n_proc: int,
+                  local: int, backend: str) -> list[dict]:
+    """The multi-process launcher (tools/launch_distributed.py) as n_proc
+    processes of ``local`` slots each on this card, at phase 6's pair;
+    returns each rank's stats line.  Every process is waited for, and
+    killed if it outlives LAUNCH_TIMEOUT_S."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(workdir, name)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dbg_assembly_tpu_torch.tools."
+         "launch_distributed", "--coordinator", f"localhost:{port}",
+         "--num-processes", str(n_proc), "--process-id", str(pid), "--lib",
+         lib, "-k", "31", "--max-read-len", str(READ_LEN), "--batch-reads",
+         "100000", "--local-slots", str(local), "--device", "cuda",
+         "--backend", backend, "--out", out], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(n_proc)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=LAUNCH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    stats = []
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"launcher rank {pid} ({backend}) exited "
+                                 f"{p.returncode}:\n{log[-3000:]}")
+        for line in log.splitlines():
+            if "] stats {" in line:
+                stats.append(json.loads(line.split(" stats ", 1)[1]))
+            else:
+                _log(f"  {line}")
+    return stats
+
+
+def _check_shards(title: str, out: str, n_proc: int, table) -> None:
+    """The union of the ranks' .npz shards == the node table (counters
+    saturated at 255 as NodeTable's), and .dist.json's total == its."""
+    z = [np.load(f"{out}.p{pid}.npz") for pid in range(n_proc)
+         if os.path.exists(f"{out}.p{pid}.npz")]
+    kmers = np.concatenate([x["kmers"] for x in z])
+    order = np.argsort(kmers)
+    if len(np.unique(kmers)) != len(kmers):
+        raise AssertionError(f"{title}: owner shards overlap")
+    bad = [] if np.array_equal(kmers[order], table.kmers) else ["kmers"]
+    for f in ("lcnt", "rcnt"):
+        got = np.minimum(np.concatenate([x[f] for x in z])[order], 255)
+        if not np.array_equal(got, getattr(table, f)):
+            bad.append(f)
+    with open(out + ".dist.json") as f:
+        meta = json.load(f)
+    if bad or meta["total_kmers"] != table.total_kmers:
+        raise AssertionError(f"{title}: shards != phase 9's node table: "
+                             f"{bad}, total_kmers {meta['total_kmers']} vs "
+                             f"{table.total_kmers}")
+    _log(f"{title}: {len(z)} shard files == phase 9's node table "
+         f"({len(kmers)} nodes; kmers, lcnt, rcnt), total_kmers "
+         f"{meta['total_kmers']}, n_devices {meta['n_devices']}")
+
+
+def phase_multiprocess(workdir: str, lib: str, files: list[str],
+                       table) -> dict:
+    """(a) the launcher over nccl, one process of four slots, and (b) over
+    gloo, two processes of two slots on the one card, each == phase 9's
+    node table; (c) count_spectrum_fast at the JAX benchmark's batch, card
+    == CPU == the capped histogram of count_unique_fast's counts (with the
+    last-run rule); (d) contig_stage_step on phase 9's table at cut 2,
+    card == CPU.  Returns the chop's and the sort's launches in (a)+(b)
+    and in (c)."""
+    from dbg_assembly_tpu_torch.contig import pointer_doubling as pd
+    from dbg_assembly_tpu_torch.io import fastq
+    from dbg_assembly_tpu_torch.kmer import count, stats
+    from dbg_assembly_tpu_torch.ops import chop
+    from dbg_assembly_tpu_torch.ops import sort as srt
+    torch.cuda.empty_cache()
+    multi = {"chop": 0, "radix_sort": 0}
+    for title, name, n_proc, local, backend in (
+            ("(a) launcher, nccl, 1 process x 4 slots", "mp_nccl", 1, 4,
+             "nccl"),
+            ("(b) launcher, gloo, 2 processes x 2 slots on one card",
+             "mp_gloo", 2, 2, "gloo")):
+        t = time.perf_counter()
+        runs = _launch_ranks(workdir, lib, name, n_proc, local, backend)
+        _log(f"{title}: wall {time.perf_counter() - t:.3f} s, the "
+             "processes started and joined (peaks below are each rank's)")
+        for pid, st in enumerate(runs):
+            _log(f"{title}, rank {pid}: wall {st['wall_s']:.3f} s, peak "
+                 f"device memory {st['peak_device_bytes']} B, launches "
+                 f"{st['launches']}, steps {st['steps']} ({st['empty_steps']}"
+                 f" empty), capacity doublings {st['capacity_doublings']}, "
+                 f"bytes within the rank {st['bytes_within']}, across ranks "
+                 f"{st['bytes_across']}")
+            for k, n in st["launches"].items():
+                if n <= 0:
+                    raise AssertionError(f"{title}: rank {pid} never "
+                                         f"launched the {k} kernel")
+                multi[k] += n
+        _check_shards(title, os.path.join(workdir, name), n_proc, table)
+
+    # (c) the spectrum at the JAX benchmark's batch (bench.py:42-45)
+    b = fastq.read_batch(files[0])
+    codes = torch.from_numpy(b.codes[:250_000]).cuda()
+    lengths = torch.from_numpy(b.lengths[:250_000]).cuda()
+    chop.launches = srt.launches = 0
+    got = count.count_spectrum_fast(codes, lengths, 31, 255)
+    torch.cuda.synchronize()
+    spec_launches = {"chop": chop.launches, "radix_sort": srt.launches}
+    _log(f"(c) count_spectrum_fast, {codes.shape[0]} x {codes.shape[1]}, "
+         f"k 31, max_freq 255: launches {spec_launches}")
+    if min(spec_launches.values()) <= 0:
+        raise AssertionError("(c) count_spectrum_fast launched no kernel")
+    cpu = count.count_spectrum_fast(codes.cpu(), lengths.cpu(), 31, 255)
+    if not (torch.equal(got[0].cpu(), cpu[0]) and got[1:] == cpu[1:]):
+        raise AssertionError("(c) count_spectrum_fast: card != CPU")
+    _, counts, _, _ = count.count_unique_fast(codes, lengths, 31)
+    c = counts[counts > 0].cpu().numpy()
+    want = np.bincount(np.minimum(c, 255), minlength=256)
+    n_windows = codes.shape[0] * (codes.shape[1] - 30)
+    moved = got[2] == n_windows        # no invalid window: no SENTINEL tail
+    if moved:
+        want[min(int(c[-1]), 255)] -= 1
+        want[255] += 1
+    if not np.array_equal(got[0].cpu().numpy(), want):
+        raise AssertionError("(c) spectrum != the capped histogram of "
+                             "count_unique_fast's counts")
+    _log(f"(c) card == CPU == the capped histogram of count_unique_fast's "
+         f"counts: {got[1]} species, {got[2]} k-mers" + (
+             f"; the batch has no invalid window, so the largest k-mer's "
+             f"run ({int(c[-1])}) moved to bin 255 (the last-run rule)"
+             if moved else ""))
+    ms = _cuda_ms(lambda: count.count_spectrum_fast(codes, lengths, 31, 255),
+                  5)
+    flat, _ = count.chop_canonical(codes, lengths, 31)
+    tail_ms = _cuda_ms(lambda: stats.spectrum_sorted(flat, 255), 5)
+    _log(f"(c) count_spectrum_fast {ms:.4f} ms (CUDA events, mean of 5), "
+         f"{got[2] / ms * 1e3:.6g} k-mers/s; the stats tail "
+         f"(spectrum_sorted) alone {tail_ms:.4f} ms")
+    del codes, lengths, flat, counts
+    torch.cuda.empty_cache()
+
+    # (d) the device contig stage on phase 9's table (bench.py:247)
+    args = [torch.from_numpy(table.kmers.view(np.int64)),
+            torch.from_numpy(table.lcnt), torch.from_numpy(table.rcnt)]
+    dev_args = [x.cuda() for x in args]
+    out = []
+    wall = _phase_wall(f"(d) contig_stage_step, {table.n_nodes} nodes, "
+                       "cut 2, on the card", lambda: out.append(
+                           pd.contig_stage_step(*dev_args, k=31, cut=2)))
+    t = time.perf_counter()
+    want = pd.contig_stage_step(*args, k=31, cut=2)
+    cpu_wall = time.perf_counter() - t
+    names = ("l_num", "r_num", "linear", "e", "dist", "cyclic")
+    bad = [n for n, g, w in zip(names, out[0], want)
+           if not torch.equal(g.cpu(), w)]
+    if bad:
+        raise AssertionError(f"(d) contig_stage_step: card != CPU: {bad}")
+    _log(f"(d) contig_stage_step card == CPU, all six outputs ({wall:.3f} "
+         f"s on the card, {cpu_wall:.3f} s on the CPU); linear "
+         f"{int(out[0][2].sum())} nodes, cyclic {int(out[0][5].sum())} "
+         "states")
+    del out, dev_args
+    torch.cuda.empty_cache()
+    return {"multiprocess": multi, "spectrum": spec_launches}
+
+
 def _timed(fn, *args) -> float:
     t = time.perf_counter()
     fn(*args)
@@ -1933,6 +2126,10 @@ def main() -> int:
         for name, n in mesh_launches.items():
             launches[name] += n
         phase_mesh_kernels(chop, srt, kern, sort_rec, files)
+        mp_launches = phase_multiprocess(workdir, lib, files, table)
+        for part in mp_launches.values():
+            for name, n in part.items():
+                launches[name] += n
 
     records = [
         {"name": "chop", "route": "cuda",
@@ -1940,7 +2137,9 @@ def main() -> int:
          "replaces": "dbg_assembly_tpu/ops/pallas_chop.py:81",
          "launches": launches["chop"],
          "launches_pipeline": workflow_launches["chop"],
-         "launches_mesh": mesh_launches["chop"], **kern},
+         "launches_mesh": mesh_launches["chop"],
+         "launches_multiprocess": mp_launches["multiprocess"]["chop"],
+         "launches_spectrum": mp_launches["spectrum"]["chop"], **kern},
         {"name": "radix_sort", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
@@ -1948,7 +2147,10 @@ def main() -> int:
          "launches_map_pair": map_launches,
          "launches_map_reads": map_reads_launches,
          "launches_pipeline": workflow_launches["radix_sort"],
-         "launches_mesh": mesh_launches["radix_sort"], **sort_rec}]
+         "launches_mesh": mesh_launches["radix_sort"],
+         "launches_multiprocess": mp_launches["multiprocess"]["radix_sort"],
+         "launches_spectrum": mp_launches["spectrum"]["radix_sort"],
+         **sort_rec}]
     for name, p in probes.PROBES.items():
         records.append({
             "name": f"probe_{name}", "route": "cuda",

@@ -124,7 +124,7 @@ class AdapterResult:
 
 def clean_adapter_arrays(read_codes: np.ndarray, lengths: np.ndarray,
                          adapters: list[str], score_cutoff: int,
-                         min_read_len: int, device="cpu",
+                         min_read_len: int, device="cuda",
                          chunk: int = DEFAULT_CHUNK) -> AdapterResult:
     """Every adapter's DP on ``device``, ``chunk`` reads at a time; the
     first adapter whose score reaches ``score_cutoff`` wins."""

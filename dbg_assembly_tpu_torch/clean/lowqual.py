@@ -116,7 +116,7 @@ class LowqualResult:
 def clean_lowqual_arrays(quals_in: np.ndarray, seq_ascii: np.ndarray,
                          lengths: np.ndarray, err_cutoff: float,
                          min_read_len: int, quality_shift: int = 33,
-                         device="cpu", chunk: int = DEFAULT_CHUNK):
+                         device="cuda", chunk: int = DEFAULT_CHUNK):
     """Trimming decisions for a batch, the scan on ``device`` ``chunk``
     reads at a time.  Returns (LowqualResult, quals_out) where quals_out
     has the 'N' positions set to the shift byte."""

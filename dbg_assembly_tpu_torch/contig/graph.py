@@ -285,3 +285,14 @@ class GraphBuilder:
                          r.clamp(max=255).cpu().numpy(),
                          f.cpu().numpy(), self.total_kmers, self.total_reads,
                          counts=c.cpu().numpy())
+
+
+def build_from_files(files: list[str], ksize: int, fmt: str = "fq",
+                     max_read_len: int = 250, device="cuda") -> NodeTable:
+    """The node table of every read of ``files``, in order, on ``device``."""
+    from ..io import fastq
+    gb = GraphBuilder(ksize, max_read_len, device=device)
+    for path in files:
+        batch = fastq.read_batch(path, fmt=fmt, strict_n=False)
+        gb.add(batch.codes, batch.lengths)
+    return gb.finalize()

@@ -710,6 +710,53 @@ def _succ_resolve(kmers: torch.Tensor, l_base: torch.Tensor,
     return succ, e, dist, cyclic
 
 
+def contig_stage_step(kmers: torch.Tensor, lcnt: torch.Tensor,
+                      rcnt: torch.Tensor, *, k: int, cut: int):
+    """The contig stage's device work over a sorted node table, as one
+    program on the tensors' device: the links (calculate_kmer_links,
+    contig.cpp:107-205), the successor over the 2M directed states and
+    pointer-doubling chain resolution.
+
+    kmers: [M] int64 ascending, SENTINEL rows inert (their counters must
+    be 0); lcnt, rcnt: [M, 4].  State i = node i walking canonical-
+    rightward, M + i = leftward.  Returns (l_num, r_num int32, linear bool,
+    e, dist int64, cyclic bool) over [M], [M], [M], [2M], [2M], [2M].
+
+    The doubling runs ceil(log2(max(2M, 2))) + 1 rounds with no early exit,
+    as JAX's: a state on a cycle never reaches a fixed point, so its e and
+    dist are what that many rounds leave."""
+    M = kmers.shape[0]
+    lq, rq = lcnt > cut, rcnt > cut
+    l_num = lq.sum(dim=1).clamp(max=3).to(torch.int32)
+    r_num = rq.sum(dim=1).clamp(max=3).to(torch.int32)
+    # torch.argmax returns the first of tied maxima, as jnp.argmax
+    l_base = torch.argmax(torch.where(lq, lcnt, 0), dim=1)
+    r_base = torch.argmax(torch.where(rq, rcnt, 0), dim=1)
+    linear = (l_num == 1) & (r_num == 1)
+
+    mask = (1 << (2 * k)) - 1
+    km2 = torch.cat([kmers, kmers])
+    base = torch.cat([r_base, l_base])
+    right = torch.arange(2 * M, device=kmers.device) < M
+    nk = torch.where(right, ((km2 << 2) | base) & mask,
+                     (km2 >> 2) | (base << (2 * (k - 1))))
+    rc = dna.revcomp_kbit(nk, k)
+    flip = nk >= rc
+    nf = torch.where(flip, rc, nk)
+    ndir_left = flip ^ ~right          # walking leftward after the step
+    idxc = torch.searchsorted(kmers, nf).clamp(max=max(M - 1, 0))
+    ok = torch.cat([linear, linear]) & (kmers[idxc] == nf) & linear[idxc]
+    n = 2 * M
+    succ = torch.where(ok, idxc + torch.where(ndir_left, M, 0), n)
+    stop = succ >= n
+    e = torch.where(stop, torch.arange(n, device=kmers.device), succ)
+    r = (~stop).to(torch.int64)
+    for _ in range(int(np.ceil(np.log2(max(n, 2)))) + 1):
+        e, r = e[e], r + r[e]
+    cyclic = torch.cat([succ, succ.new_tensor([n])])[e] < n
+    return l_num, r_num, linear, e, r + 1, cyclic
+
+
 def _resolve_chains(succ: torch.Tensor):
     """Jump-pointer doubling over a successor function, on its device.
 

@@ -34,6 +34,17 @@ def ascii_to_codes(buf: np.ndarray, strict_n: bool = False) -> np.ndarray:
     return lut[buf]
 
 
+def codes_to_ascii(codes: np.ndarray) -> np.ndarray:
+    """2-bit codes to ASCII bases; 4 and above read as N."""
+    return BASES[np.minimum(codes, 4)]
+
+
+def revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement of a code array along the last axis (N=4 fixed)."""
+    comp = np.where(codes < 4, 3 - codes, codes)
+    return comp[..., ::-1]
+
+
 def bit2seq(kbit: int, ksize: int) -> str:
     """Unpack one packed k-mer to an ACGT string (parity seqKmer.cpp:45-52)."""
     kbit = int(kbit)
@@ -101,3 +112,17 @@ def canonical(kbit, ksize: int):
     if isinstance(kbit, torch.Tensor):
         return torch.minimum(kbit.to(torch.int64), rc), rc
     return np.minimum(kbit, rc), rc
+
+
+def next_kmer_rightward(kbit, base, ksize: int):
+    """(kbit << 2 | base) & mask, parity contig.h:127-130 (numpy uint64)."""
+    mask = np.uint64((1 << (2 * ksize)) - 1)
+    return ((np.asarray(kbit, np.uint64) << np.uint64(2))
+            | np.asarray(base, np.uint64)) & mask
+
+
+def next_kmer_leftward(kbit, base, ksize: int):
+    """(kbit >> 2) + (base << 2(k-1)), parity contig.h:119-123 (numpy
+    uint64)."""
+    return ((np.asarray(kbit, np.uint64) >> np.uint64(2))
+            + (np.asarray(base, np.uint64) << np.uint64(2 * (ksize - 1))))

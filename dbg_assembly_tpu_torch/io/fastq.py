@@ -82,3 +82,23 @@ def gz_write_bytes(path: str, data: bytes, level: int = 1) -> None:
     with open(path, "wb") as f:
         f.write(co.compress(data))
         f.write(co.flush())
+
+
+def write_fastq_gz(path: str, heads: list, seqs: list, quals: list,
+                   level: int = 6) -> None:
+    """One-line FASTQ records; the '+' separator line is bare, as the
+    reference writers' (clean_lowqual.cpp:298, clean_adapter.cpp:414)."""
+    out = bytearray()
+    for h, s, q in zip(heads, seqs, quals):
+        out += h + b"\n" + s + b"\n+\n" + q + b"\n"
+    with gzip.open(path, "wb", compresslevel=level) as f:
+        f.write(bytes(out))
+
+
+def write_fasta_gz(path: str, heads: list, seqs: list, level: int = 6) -> None:
+    """One-line FASTA records."""
+    out = bytearray()
+    for h, s in zip(heads, seqs):
+        out += h + b"\n" + s + b"\n"
+    with gzip.open(path, "wb", compresslevel=level) as f:
+        f.write(bytes(out))

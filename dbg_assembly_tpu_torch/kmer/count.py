@@ -65,6 +65,45 @@ def count_unique_fast(codes: torch.Tensor, lengths: torch.Tensor,
     return uniq, counts, int(starts.shape[0]), n_valid
 
 
+def count_spectrum_fast(codes: torch.Tensor, lengths: torch.Tensor,
+                        ksize: int, max_freq: int = 255):
+    """Chop + one sort + the spectrum (stats.spectrum_sorted, with its
+    last-run rule).  Returns (spectrum [max_freq + 1] int64, n_unique,
+    n_valid)."""
+    from .stats import spectrum_sorted
+    flat, n_valid = chop_canonical(codes, lengths, ksize)
+    spectrum, n_unique = spectrum_sorted(flat, max_freq)
+    return spectrum, n_unique, n_valid
+
+
+def run_length(sorted_kmers: torch.Tensor):
+    """Run-length encode a sorted vector (SENTINEL last), JAX's padded
+    contract.  Returns (unique [n] int64, counts [n] int64, n_unique) with
+    the runs ascending in the first n_unique entries and SENTINEL / 0
+    after them."""
+    n_valid = int((sorted_kmers != SENTINEL).sum())
+    _, starts, run_len = _run_starts(sorted_kmers, n_valid)
+    M = starts.shape[0]
+    uniq = torch.full_like(sorted_kmers, SENTINEL)
+    counts = torch.zeros(sorted_kmers.shape[0], dtype=torch.int64,
+                         device=sorted_kmers.device)
+    uniq[:M] = sorted_kmers[starts]
+    counts[:M] = run_len
+    return uniq, counts, M
+
+
+def count_stats(sorted_kmers: torch.Tensor, max_freq: int = 65535):
+    """Spectrum, species count and valid count of a sorted vector
+    (SENTINEL last), from exact run lengths: the end of the vector ends a
+    run.  Returns (spectrum [max_freq + 1] int64, bin 0 == 0, n_unique,
+    n_valid)."""
+    n_valid = int((sorted_kmers != SENTINEL).sum())
+    _, starts, run_len = _run_starts(sorted_kmers, n_valid)
+    spectrum = torch.bincount(run_len.clamp(max=max_freq),
+                              minlength=max_freq + 1)
+    return spectrum, int(starts.shape[0]), n_valid
+
+
 def count_batch(codes: torch.Tensor, lengths: torch.Tensor, ksize: int):
     """Count the canonical k-mers of one batch on the tensors' device.
     Returns (unique int64 [M] ascending, counts int64 [M], n_valid)."""

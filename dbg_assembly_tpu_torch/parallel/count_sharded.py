@@ -18,6 +18,11 @@ DBGgraph.cpp:148-150) over the shard slots of a ``mesh.Mesh``.  Per slot:
 Global statistics are the psums of JAX's, returned as Python ints.  Where
 JAX returns [D, n] rows masked at their sorted positions (a TPU gather
 workaround), the port returns each slot's compact records.
+
+The mesh is a ``mesh.Mesh`` (every slot in this process) or a
+``ranks.RankMesh`` (slots spread over processes: the per-slot lists hold
+this process's slots, and the exchange and the sums go over
+torch.distributed).
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ from ..contig.graph import _chop_with_edges, _node_records
 from ..kmer.count import _run_starts
 from ..ops import sort as radix
 from ..ops.chop import SENTINEL, chop
-from . import mesh as meshmod
 
 
 def _n_valid(lengths: torch.Tensor, ksize: int, P: int) -> int:
@@ -59,8 +63,7 @@ def _exchange(mesh, bufs):
     """all_to_all of every column of the per-slot buckets: returns one
     list of per-owner arrivals a column."""
     n_cols = len(bufs[0][0])
-    return [meshmod.all_to_all(mesh, [[b[t][c] for t in range(mesh.n)]
-                                      for b in bufs])
+    return [mesh.all_to_all([[b[t][c] for t in range(mesh.n)] for b in bufs])
             for c in range(n_cols)]
 
 
@@ -77,9 +80,7 @@ def _count_routed(mesh, flats, n_valids, ksize: int, capacity: int):
         uniq.append(sk[starts])
         counts.append(run_len)
         n_unique.append(int(starts.shape[0]))
-    stats = {"total_kmers": sum(n_valids), "unique_kmers": sum(n_unique),
-             "dropped": sum(d for _, d in routed)}
-    return uniq, counts, n_unique, stats
+    return uniq, counts, n_unique, _stats(mesh, n_valids, n_unique, routed)
 
 
 def count_step(codes, lengths, *, ksize: int, mesh, capacity: int):
@@ -105,16 +106,17 @@ def graph_ingest_step(codes, lengths, base_index: int = 0, *, ksize: int,
     their strand-adjusted neighbour codes (DBGgraph.cpp:76-89), routes the
     k-mer, its codes and its stream position to the owner, which
     segment-sums the eight edge counters and takes the run's smallest
-    position.  Window j of slot d's row block has the position base_index
-    + d * n_local + j, so the merged table equals the single-device
-    builder's, the insertion-order field included: arrivals keep source
-    order and every sort is stable, so a run's head holds the smallest.
+    position.  Window j of global slot d's row block has the position
+    base_index + d * n_local + j, so the merged table equals the
+    single-device builder's, the insertion-order field included: arrivals
+    keep source order and every sort is stable, so a run's head holds the
+    smallest.
 
     Returns per slot (uniq int64 ascending, lcnt [M, 4] int32, rcnt [M, 4]
     int32 (unclipped), first_idx int64, counts int32, n_unique) and the
     global ints of count_step."""
     flats, n_valids = [], []
-    for d, (c, ln) in enumerate(zip(codes, lengths)):
+    for d, (c, ln) in enumerate(zip(codes, lengths), mesh.first_slot):
         kmers, left, right = _chop_with_edges(c, ln, ksize)
         n_local = kmers.numel()
         pos = base_index + d * n_local + torch.arange(
@@ -132,9 +134,15 @@ def graph_ingest_step(codes, lengths, base_index: int = 0, *, ksize: int,
         for lst, v in zip(out, (uniq, lcnt, rcnt, pos[head], counts,
                                 int(uniq.shape[0]))):
             lst.append(v)
-    stats = {"total_kmers": sum(n_valids), "unique_kmers": sum(out[5]),
-             "dropped": sum(d for _, d in routed)}
-    return (*out, stats)
+    return (*out, _stats(mesh, n_valids, out[5], routed))
+
+
+def _stats(mesh, n_valids, n_unique, routed) -> dict:
+    """The step's global ints (JAX's psums): summed over this process's
+    slots, then over the mesh's processes."""
+    total, unique, dropped = mesh.sum_ints(
+        sum(n_valids), sum(n_unique), sum(d for _, d in routed))
+    return {"total_kmers": total, "unique_kmers": unique, "dropped": dropped}
 
 
 def default_capacity(n_reads: int, read_len: int, ksize: int,
@@ -174,9 +182,11 @@ def _run_exact(step_fn, codes, lengths, *, ksize, mesh, capacity,
         "pathologically skewed — shard by hashed key instead of raw mod")
 
 
-def _rows(codes) -> tuple[int, int]:
-    """(rows over all slots, row width) of per-slot code blocks."""
-    return sum(c.shape[0] for c in codes), codes[0].shape[1]
+def _rows(codes, mesh) -> tuple[int, int]:
+    """(rows over every slot of the mesh, row width) of per-slot code
+    blocks: JAX's global batch shape, whatever process holds the rows."""
+    rows, = mesh.sum_ints(sum(c.shape[0] for c in codes))
+    return rows, codes[0].shape[1]
 
 
 def count_step_exact(codes, lengths, *, ksize: int, mesh,
@@ -184,7 +194,7 @@ def count_step_exact(codes, lengths, *, ksize: int, mesh,
     """count_step that never undercounts; stats also carries the final
     'capacity' and the 'capacity_doublings' it took."""
     if capacity is None:
-        capacity = default_capacity(*_rows(codes), ksize, mesh.n)
+        capacity = default_capacity(*_rows(codes, mesh), ksize, mesh.n)
     return _run_exact(count_step, codes, lengths, ksize=ksize, mesh=mesh,
                       capacity=capacity, max_doublings=max_doublings,
                       stats_index=3)
@@ -195,7 +205,7 @@ def graph_ingest_step_exact(codes, lengths, base_index: int = 0, *,
                             max_doublings: int = 6):
     """graph_ingest_step that never drops (see count_step_exact)."""
     if capacity is None:
-        capacity = default_capacity(*_rows(codes), ksize, mesh.n)
+        capacity = default_capacity(*_rows(codes, mesh), ksize, mesh.n)
 
     def step(codes, lengths, **kw):
         return graph_ingest_step(codes, lengths, base_index, **kw)

@@ -32,13 +32,27 @@ bytes_moved = 0
 
 
 class Mesh:
-    """D = n shard slots, slot d on ``devices[d]`` (JAX's mesh axis 'd')."""
+    """D = n shard slots, slot d on ``devices[d]`` (JAX's mesh axis 'd').
+
+    One process holds every slot: ``first_slot`` (the global index of
+    devices[0]) is 0, and sums over the slots are the caller's own.
+    parallel/ranks.RankMesh has the same interface over processes."""
+
+    first_slot = 0
 
     def __init__(self, devices: list[torch.device]):
         if not devices:
             raise ValueError("a mesh needs at least one slot")
         self.devices = list(devices)
         self.n = len(self.devices)
+
+    def all_to_all(self, bufs: list[list[torch.Tensor]]):
+        return all_to_all(self, bufs)
+
+    def sum_ints(self, *values: int) -> list[int]:
+        """The sums over every slot of per-slot-total ints: here, the
+        values themselves."""
+        return [int(v) for v in values]
 
     def layout(self) -> str:
         """E.g. "4 shards on 1 card" or "4 shards on the CPU"."""

@@ -138,7 +138,7 @@ def test_clean_lowqual_arrays(chunk):
     quals, seq, lengths, _ = _batch(4)
     jres, jq = jlq.clean_lowqual_arrays(quals, seq, lengths, 0.01, 40)
     tres, tq = tlq.clean_lowqual_arrays(quals, seq, lengths, 0.01, 40,
-                                        chunk=chunk)
+                                        device="cpu", chunk=chunk)
     np.testing.assert_array_equal(tq, jq)
     for name, w in vars(jres).items():
         g = getattr(tres, name)
@@ -170,7 +170,7 @@ def test_clean_adapter_arrays(chunk):
     adapters = [R1, TIE_ADAPTER, R2]
     want = jad.clean_adapter_arrays(codes, lengths, adapters, 12, 50)
     got = tad.clean_adapter_arrays(codes, lengths, adapters, 12, 50,
-                                   chunk=chunk)
+                                   device="cpu", chunk=chunk)
     for name, w in vars(want).items():
         g = getattr(got, name)
         assert g.dtype == w.dtype, name
@@ -261,11 +261,12 @@ def test_cli_clean_two_stages(soiled, tmp_path):
 def test_counts():
     quals, seq, lengths, codes = _batch(7, n=50, L=30)
     tlq.reset_counts()
-    tlq.clean_lowqual_arrays(quals, seq, lengths, 0.01, 10, chunk=20)
+    tlq.clean_lowqual_arrays(quals, seq, lengths, 0.01, 10, device="cpu",
+                             chunk=20)
     assert tlq.counts == {"chunks": 3, "steps": 90}
     tad.reset_counts()
     tad.clean_adapter_arrays(codes, lengths, [R1, TIE_ADAPTER], 12, 10,
-                             chunk=20)
+                             device="cpu", chunk=20)
     assert tad.counts == {"chunks": 6, "steps": 180}
 
 
@@ -274,13 +275,14 @@ def test_cleaning_card_equals_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     quals, seq, lengths, codes = _batch(8, n=3000)
-    cpu = tlq.clean_lowqual_arrays(quals, seq, lengths, 0.01, 40)
+    cpu = tlq.clean_lowqual_arrays(quals, seq, lengths, 0.01, 40,
+                                   device="cpu")
     gpu = tlq.clean_lowqual_arrays(quals, seq, lengths, 0.01, 40,
                                    device="cuda")
     for name, w in vars(cpu[0]).items():
         np.testing.assert_array_equal(getattr(gpu[0], name), w)
     a = [R1, TIE_ADAPTER]
-    cpu = tad.clean_adapter_arrays(codes, lengths, a, 12, 40)
+    cpu = tad.clean_adapter_arrays(codes, lengths, a, 12, 40, device="cpu")
     gpu = tad.clean_adapter_arrays(codes, lengths, a, 12, 40, device="cuda")
     for name, w in vars(cpu).items():
         np.testing.assert_array_equal(getattr(gpu, name), w)

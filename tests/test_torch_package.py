@@ -26,7 +26,8 @@ def test_no_jax_import():
         "or m == 'dbg_assembly_tpu']\n"
         "assert len(names) >= 15, names\n"
         "new = {'parallel.mesh', 'parallel.count_sharded', 'parallel.halo', "
-        "'contig.mesh_assemble', 'correct.sharded', 'scaffold.sharded'}\n"
+        "'contig.mesh_assemble', 'correct.sharded', 'scaffold.sharded', "
+        "'parallel.ranks', 'kmer.stats', 'tools.launch_distributed'}\n"
         "assert {'dbg_assembly_tpu_torch.' + n for n in new} <= set(names)\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
@@ -55,13 +56,18 @@ def test_chip_smoke_fails_without_card(tmp_path, where):
 
 def test_cuda_without_card_raises(monkeypatch, tmp_path):
     from dbg_assembly_tpu_torch import cli, resolve_device
-    from dbg_assembly_tpu_torch.contig.graph import GraphBuilder
+    from dbg_assembly_tpu_torch.clean import adapter, lowqual
+    from dbg_assembly_tpu_torch.contig.graph import (GraphBuilder,
+                                                     build_from_files)
+    from dbg_assembly_tpu_torch.tools import launch_distributed
     from dbg_assembly_tpu_torch.kmer.count import KmerCounter
     from dbg_assembly_tpu_torch.parallel.mesh import data_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cz, lib = str(tmp_path / "x.cz"), str(tmp_path / "x.lib")
     fq, fa = str(tmp_path / "x.fq"), str(tmp_path / "x.fa")
+    quals = np.full((2, 20), 40, np.uint8)
+    lengths = np.full(2, 20, np.int32)
     for make in (lambda: resolve_device("cuda"),
                  lambda: KmerCounter(17, device="cuda"),
                  lambda: GraphBuilder(31, device="cuda"),
@@ -89,7 +95,20 @@ def test_cuda_without_card_raises(monkeypatch, tmp_path):
                  lambda: cli.main(["debruijn_contig", "--mesh", "4", "-o",
                                    str(tmp_path / "w"), lib]),
                  lambda: cli.main(["map_pair", "--mesh", "4", "-o",
-                                   str(tmp_path / "w"), fa, lib])):
+                                   str(tmp_path / "w"), fa, lib]),
+                 lambda: build_from_files([fq], 31),
+                 lambda: lowqual.clean_lowqual_arrays(
+                     quals, quals, lengths, 0.01, 10),
+                 lambda: adapter.clean_adapter_arrays(
+                     quals, lengths, ["ACGT"], 12, 10),
+                 lambda: launch_distributed.main([
+                     "--coordinator", "localhost:1", "--num-processes", "1",
+                     "--process-id", "0", "--lib", lib, "--device", "cuda",
+                     "--backend", "gloo", "--out", str(tmp_path / "w")]),
+                 lambda: launch_distributed.main([
+                     "--coordinator", "localhost:1", "--num-processes", "1",
+                     "--process-id", "0", "--lib", lib,
+                     "--out", str(tmp_path / "w")])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert not os.path.exists(tmp_path / "w")
