@@ -151,6 +151,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      batch has no invalid window; CUDA-event ms of the call and of the
      stats tail, k-mers a second; (d) contig_stage_step on phase 9's table
      at cut 2: card == CPU, all six outputs, with its wall.
+  18. the host twins of the JAX package (run last), each against a run an
+     earlier phase made: (a) kmerfreq.run(table_format="8bit") and the
+     1-bit run at k 15 on the card (the 8-bit table is 1 GiB of host
+     memory): the 8-bit table's > 1 bits packed == the 1-bit .cz, its
+     nonzero bytes == min(count, 255) of a KmerCounter(15) on the card;
+     then the 8-bit tables of phase 11's 25 000-pair library at k 15 and
+     at k 8 (where some k-mers count over 255) on the card == with
+     --device cpu, byte for byte, and ``correct_error -k 15 -l 1`` (the
+     cutoff fits the library's 1.6x depth) on the card's table == on the
+     CPU's, every file, with reads kept and bases corrected (wall,
+     .cor.stat numbers); (b) ``DBG_PY_ASSEMBLE=1 debruijn_contig -k 31 -i
+     0.02 -M 125`` (ingest on the card, the Python walks on the host):
+     every file and the run log == phase 8's exact run; the readout's wall
+     beside the native readout's on phase 9's table; (c) ``DBG_PY_MAP=1
+     map_pair`` with phase 13's flags on the first 25 000 pairs of phase
+     6's files (all of them take about 240 s on the host) == the torch
+     engine on the card on the same pairs, every file; (d)
+     ``DBG_PY_FASTQ=1`` read_batch == the native parser on phase 6's two
+     files, every array, with both walls.  Each run prints its wall, the
+     peak host memory (VmRSS sampled every 20 ms while it runs, and
+     getrusage's lifetime peak) and the chop's and the sort's launches
+     (> 0 in (a)'s card runs and (b)).
 Bounds (bound_ms) are the larger of the bytes each kernel must move (each
 input read once, each output written once) over the published 3.35 TB/s
 and its operations over 67 T a second (the published float32 rate outside
@@ -163,6 +185,7 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import re
 import os
@@ -2034,6 +2057,299 @@ def phase_multiprocess(workdir: str, lib: str, files: list[str],
     return {"multiprocess": multi, "spectrum": spec_launches}
 
 
+# ---------------------------------------------------------------- phase 18
+MAP_PY_PAIRS = 25_000
+class _RssPeak:
+    """The largest resident memory of this process (VmRSS) seen while the
+    block runs, sampled every 20 ms by a thread, and getrusage's lifetime
+    peak after it (the machine's /proc has no VmHWM to reset)."""
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = _rss()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, _rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        import resource
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss())
+        self.lifetime = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024
+        return False
+
+
+def _twin_run(title: str, fn, kernels: dict, totals: dict,
+              need=("chop", "radix_sort")):
+    """fn() with every kernel count set to 0 just before and read just
+    after (each kernel in ``need`` must have launched), timed on the host
+    clock with the card synchronised, with its peak host memory; returns
+    (fn's result, wall s)."""
+    for mod in kernels.values():
+        mod.launches = 0
+    with _RssPeak() as mem:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = {n: m.launches for n, m in kernels.items()}
+    _log(f"{title}: wall {wall:.3f} s, peak host memory {mem.peak} B, "
+         f"{mem.peak - mem.start} B over its start (VmRSS sampled every 20 "
+         f"ms; getrusage's lifetime peak {mem.lifetime} B), kernel launches "
+         f"{counts}")
+    for name in need:
+        if counts[name] <= 0:
+            raise AssertionError(f"{title} never launched the {name} kernel")
+    for name, n in counts.items():
+        totals[name] += n
+    return out, wall
+
+
+def _digest_gz(path: str) -> str:
+    """_digest of a gzip stream whatever its name (correct_error's .cor)."""
+    import gzip
+    import hashlib
+    with open(path, "rb") as f:
+        gz = f.read(2) == b"\x1f\x8b"
+    if not gz:
+        return _digest(path)
+    with gzip.open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+@contextlib.contextmanager
+def _flag(name: str):
+    """Environment flag ``name`` = 1 inside the block."""
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        del os.environ[name]
+
+
+def phase_hosttwins(workdir: str, lib: str, files: list[str],
+                    hard_files: list[str], prefix: str, contigs: str,
+                    table, kernels: dict) -> dict:
+    """The host twins of the JAX package: (a) the 8-bit table at k 15 on
+    the card against the 1-bit table and a KmerCounter; the 25 000-pair
+    library's 8-bit tables at k 15 and k 8 (counts over 255) on the card
+    == --device cpu's, and correct_error -l 1 on the card's k 15 table ==
+    on the CPU's; (b) DBG_PY_ASSEMBLE=1 debruijn_contig == phase 8's
+    exact run, its readout timed beside the native one; (c) DBG_PY_MAP=1
+    map_pair == the torch engine on the card, phase 13's flags, on the
+    first MAP_PY_PAIRS pairs; (d) DBG_PY_FASTQ=1 read_batch == the native
+    parser.  Returns the chop's and the sort's launches over (a) and
+    (b)."""
+    from dbg_assembly_tpu_torch import cli
+    from dbg_assembly_tpu_torch.contig import refassemble
+    from dbg_assembly_tpu_torch.io import cz as czio
+    from dbg_assembly_tpu_torch.io import fastq
+    from dbg_assembly_tpu_torch.kmer import kmerfreq
+    from dbg_assembly_tpu_torch.kmer.count import KmerCounter
+    d = os.path.join(workdir, "hosttwins")
+    os.makedirs(d)
+    totals = dict.fromkeys(kernels, 0)
+
+    # (a) the 8-bit table
+    p8, p1 = os.path.join(d, "k15_8bit"), os.path.join(d, "k15_1bit")
+    _twin_run("(a) kmerfreq.run(table_format='8bit') k 15",
+              lambda: kmerfreq.run(lib, ksize=15, table_format="8bit",
+                                   out_prefix=p8, device="cuda"),
+              kernels, totals)
+    _twin_run("(a) kmerfreq.run k 15 (1-bit)",
+              lambda: kmerfreq.run(lib, ksize=15, out_prefix=p1,
+                                   device="cuda"), kernels, totals)
+    freqs = czio.read_cz_bytes(p8 + ".cz", 15)
+    if not np.array_equal(np.packbits(freqs > 1),
+                          czio.read_cz_bits(p1 + ".cz", 15)):
+        raise AssertionError("(a) the 8-bit table's > 1 bits != the 1-bit "
+                             "table")
+    with open(p8 + ".stat", "rb") as f1, open(p1 + ".stat", "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("(a) 8-bit .stat != 1-bit .stat")
+    counter = KmerCounter(15, device="cuda")
+    for path in files:
+        b = fastq.read_batch(path)
+        counter.add(b.codes, b.lengths)
+    u, c, _ = counter.finalize()
+    if not (np.array_equal(freqs[u.astype(np.int64)], np.minimum(c, 255))
+            and np.count_nonzero(freqs) == len(u)):
+        raise AssertionError("(a) 8-bit table != min(count, 255) of a "
+                             "KmerCounter at k 15")
+    _log(f"(a) 8-bit table (4^15 B) == packed 1-bit table at > 1 and == "
+         f"min(count, 255) of KmerCounter(15): {len(u)} species, "
+         f"{int((freqs == 255).sum())} saturated")
+    del freqs, counter, u, c
+    # the 25 000-pair library's tables, card == CPU: at k 15 (corrected
+    # on below) and at k 8, where some k-mers count over 255
+    tabs = {}
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        hlib, _ = _mirror(hard_files, os.path.join(d, "hard_" + where))
+        tabs[where] = hlib
+        for k in (15, 8):
+            _twin_run(f"(a) kmerfreq.run(table_format='8bit') k {k}, "
+                      f"25 000 pairs, --device {dev}",
+                      lambda: kmerfreq.run(
+                          hlib, ksize=k, table_format="8bit", device=dev,
+                          out_prefix=f"{hlib}.k{k}"), kernels, totals,
+                      need=("chop", "radix_sort") if where == "card" else ())
+    for k in (15, 8):
+        for suf in (".cz", ".cz.len", ".stat"):
+            if _digest(f"{tabs['card']}.k{k}{suf}") != \
+                    _digest(f"{tabs['host']}.k{k}{suf}"):
+                raise AssertionError(f"(a) card 8-bit k {k} {suf} != CPU's")
+    k8 = czio.read_cz_bytes(tabs["card"] + ".k8.cz", 8)
+    if not (k8 == 255).any():
+        raise AssertionError("(a) no k-mer of the k 8 table saturated")
+    _log(f"(a) 25 000 pairs: card 8-bit tables == --device cpu's at k 15 "
+         f"and k 8 (k 8: {int((k8 > 0).sum())} indexes set, "
+         f"{int((k8 == 255).sum())} saturated at 255)")
+    # correct_error on each table; -l 1 as the library's depth is 1.6x
+    cor = {}
+    for where in tabs:
+        _twin_run(f"(a) correct_error -k 15 -l 1 (25 000 pairs, the "
+                  f"{where}'s table)",
+                  lambda: cli.main(["correct_error", "-k", "15", "-l", "1",
+                                    tabs[where] + ".k15.cz", tabs[where]]),
+                  kernels, totals, need=())
+        hfiles = [ln.strip() for ln in open(tabs[where]) if ln.strip()]
+        cor[where] = [_digest_gz(f + s) for f in hfiles
+                      for s in (".cor", ".cor.stat", ".cor.pair.fa.gz",
+                                ".cor.single.fa.gz",
+                                ".cor.pair.single.stat")
+                      if os.path.exists(f + s)]
+    if len(cor["card"]) != 7 or cor["card"] != cor["host"]:
+        raise AssertionError(f"(a) correct_error on the card's table != on "
+                             f"the CPU's ({len(cor['card'])} files)")
+    kept = fixed = 0
+    for f in hfiles:
+        with open(f + ".cor.stat") as sf:
+            st = [ln.strip() for ln in sf if ln.strip()]
+        kv = dict(ln.rsplit(" ", 1) for ln in st)
+        kept += int(kv["num_result_reads"])
+        fixed += int(kv["num_corrected_bases_by_two_methods"])
+        _log(f"(a) {os.path.basename(f)}.cor.stat: " + ", ".join(st))
+    if kept <= 0 or fixed <= 0:
+        raise AssertionError(f"(a) correct_error kept {kept} reads, "
+                             f"corrected {fixed} bases")
+    _log(f"(a) correct_error -l 1 on the card's table == on the CPU's: "
+         f"{len(cor['card'])} files; {kept} reads kept, {fixed} bases "
+         "corrected")
+
+    # (b) the Python assembler
+    pyprefix = os.path.join(d, "asm_py")
+    timed = {}
+    run_orig = refassemble.RefAssembler.run
+
+    def run_timed(self, prefix):
+        t = time.perf_counter()
+        st = run_orig(self, prefix)
+        timed["readout"] = time.perf_counter() - t
+        return st
+
+    refassemble.RefAssembler.run = run_timed
+    try:
+        with _flag("DBG_PY_ASSEMBLE"), \
+                open(os.path.join(d, "contig_py.log"), "w") as logf, \
+                contextlib.redirect_stderr(logf):
+            _twin_run("(b) DBG_PY_ASSEMBLE=1 debruijn_contig -k 31 -i 0.02 "
+                      "-M 125",
+                      lambda: cli.main(["debruijn_contig", "-k", "31", "-i",
+                                        "0.02", "-M", "125", "-o", pyprefix,
+                                        "--device", "cuda", lib]),
+                      kernels, totals)
+    finally:
+        refassemble.RefAssembler.run = run_orig
+    bad = [s for s in CONTIG_SUFFIXES
+           if _digest(pyprefix + s) != _digest(prefix + s)]
+    logs = []
+    for path, pre in ((os.path.join(d, "contig_py.log"), pyprefix),
+                      (os.path.join(workdir, "contig.log"), prefix)):
+        with open(path) as f:
+            logs.append(re.sub(r"(Run time: )[0-9.e+-]+", r"\1X", f.read())
+                        .replace(pre, "P"))
+    if bad or logs[0] != logs[1]:
+        raise AssertionError(f"(b) DBG_PY_ASSEMBLE=1 != phase 8's exact run:"
+                             f" {bad}, run logs equal: {logs[0] == logs[1]}")
+    nprefix = os.path.join(d, "asm_native")
+    asm = refassemble.RefAssembler(table, refassemble.AssembleParams(
+        ksize=31, init_hash_size=0.02, contig_len_cutoff=125))
+    t = time.perf_counter()
+    asm.run(nprefix)
+    native_s = time.perf_counter() - t
+    bad = [s for s in CONTIG_SUFFIXES
+           if _digest(nprefix + s) != _digest(prefix + s)]
+    if bad:
+        raise AssertionError(f"(b) native readout of phase 9's table != "
+                             f"phase 8's exact run: {bad}")
+    _log(f"(b) DBG_PY_ASSEMBLE=1 == phase 8's exact run: "
+         f"{len(CONTIG_SUFFIXES)} files and the run log; readout "
+         f"(RefAssembler.run) {timed['readout']:.3f} s in Python, "
+         f"{native_s:.3f} s native on phase 9's table ({table.n_nodes} "
+         "nodes)")
+    del asm
+
+    # (c) the numpy index and mapper, on the first MAP_PY_PAIRS pairs (all
+    # 613 333 take about 240 s on the H100 machine's host, 100 000 from 18
+    # to 59 s); the torch engine maps the same pairs on the card as the
+    # reference
+    cut = []
+    for path in files:
+        cut.append(os.path.join(d, "cut_" + os.path.basename(path)))
+        with open(path, "rb") as src, open(cut[-1], "wb") as dst:
+            dst.writelines(itertools.islice(src, 4 * MAP_PY_PAIRS))
+    sufs = (".map_pair.2ctg.gz", ".map_pair.1ctg.gz", ".map_pair.gap.gz",
+            ".map_pair.stat")
+    base = os.path.basename(cut[0])
+    digests = {}
+    for name, flag, need in (("torch", None, ("radix_sort",)),
+                             ("python", "DBG_PY_MAP", ())):
+        mlib, _ = _mirror(cut, os.path.join(d, "map_" + name))
+        mdir = os.path.join(d, "map_" + name, "out")
+        with _flag(flag) if flag else contextlib.nullcontext():
+            _twin_run(f"(c) {flag + '=1 ' if flag else ''}map_pair -k 31 -s "
+                      f"5 -l 125 -r 100 -i 0.97, the first {MAP_PY_PAIRS} "
+                      "pairs", lambda: cli.main(MAP_ARGV + [
+                          "-o", mdir, "--device", "cuda", contigs, mlib]),
+                      kernels, totals, need=need)
+        digests[name] = [_digest(os.path.join(mdir, base + s)) for s in sufs]
+    if digests["python"] != digests["torch"]:
+        raise AssertionError("(c) DBG_PY_MAP=1 map_pair != the torch "
+                             "engine's files")
+    _log(f"(c) DBG_PY_MAP=1 map_pair == the torch engine on the first "
+         f"{MAP_PY_PAIRS} pairs: {len(sufs)} files")
+
+    # (d) the Python FASTQ parser
+    for path in files:
+        kw = dict(keep_heads=True, keep_ascii=True)
+        t = time.perf_counter()
+        want = fastq.read_batch(path, **kw)
+        t_native = time.perf_counter() - t
+        t = time.perf_counter()
+        with _flag("DBG_PY_FASTQ"):
+            got = fastq.read_batch(path, **kw)
+        t_py = time.perf_counter() - t
+        bad = [f for f in ("codes", "quals", "lengths", "seqs_ascii")
+               if not np.array_equal(getattr(got, f), getattr(want, f))]
+        if bad or got.heads != want.heads:
+            raise AssertionError(f"(d) DBG_PY_FASTQ=1 != native parser on "
+                                 f"{os.path.basename(path)}: {bad}")
+        _log(f"(d) DBG_PY_FASTQ=1 read_batch == native on "
+             f"{os.path.basename(path)} ({got.n_reads} reads): Python "
+             f"{t_py:.3f} s, native {t_native:.3f} s")
+        del got, want
+    return totals
+
+
 def _timed(fn, *args) -> float:
     t = time.perf_counter()
     fn(*args)
@@ -2130,6 +2446,10 @@ def main() -> int:
         for part in mp_launches.values():
             for name, n in part.items():
                 launches[name] += n
+        twin_launches = phase_hosttwins(workdir, lib, files, hard_files,
+                                        prefix, contigs, table, kernels)
+        for name, n in twin_launches.items():
+            launches[name] += n
 
     records = [
         {"name": "chop", "route": "cuda",
@@ -2139,7 +2459,8 @@ def main() -> int:
          "launches_pipeline": workflow_launches["chop"],
          "launches_mesh": mesh_launches["chop"],
          "launches_multiprocess": mp_launches["multiprocess"]["chop"],
-         "launches_spectrum": mp_launches["spectrum"]["chop"], **kern},
+         "launches_spectrum": mp_launches["spectrum"]["chop"],
+         "launches_hosttwins": twin_launches["chop"], **kern},
         {"name": "radix_sort", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
@@ -2150,6 +2471,7 @@ def main() -> int:
          "launches_mesh": mesh_launches["radix_sort"],
          "launches_multiprocess": mp_launches["multiprocess"]["radix_sort"],
          "launches_spectrum": mp_launches["spectrum"]["radix_sort"],
+         "launches_hosttwins": twin_launches["radix_sort"],
          **sort_rec}]
     for name, p in probes.PROBES.items():
         records.append({

@@ -19,10 +19,15 @@ at a time (contig.cpp:832-896).  Here:
 
 Each record is byte-identical to the exact readout's; only the file order of
 length ties can differ.  Pruning state is host numpy as in the JAX package;
-the device holds the node table only while chains resolve.
+the device holds the node table only while chains resolve.  DBG_PD_PROFILE
+set prints a "[pd]" line a stage step and a "[ro]" line a readout step with
+its seconds, as the JAX package does.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -46,6 +51,22 @@ def _revcomp_bytes(s: bytes) -> bytes:
 def _adjust_depth_bytes(d: np.ndarray) -> np.ndarray:
     """Depth chars avoid '\\n' (10) and '>' (62): contig.cpp:849-851."""
     return np.where((d == 10) | (d == 62), d - 1, d).astype(np.uint8)
+
+
+class _StepClock:
+    """DBG_PD_PROFILE's step lines: each call prints the step's name and
+    the seconds since the previous call (or the clock's start)."""
+
+    def __init__(self, tag: str):
+        self.on = bool(os.environ.get("DBG_PD_PROFILE"))
+        self.tag = tag
+        self.t0 = time.perf_counter()
+
+    def __call__(self, msg: str) -> None:
+        if self.on:
+            print(f"{self.tag} {msg:18s} "
+                  f"{time.perf_counter() - self.t0:7.2f}s", flush=True)
+        self.t0 = time.perf_counter()
 
 
 # =========================================================================
@@ -866,6 +887,7 @@ def read_out_contigs(g: _Graph, prefix: str):
     byte-identical to the serial path's; only file ORDER can differ
     (length-sort ties).  Cycles and hairpin (self-reverse) chains fall
     back to the exact serial walker in slot order."""
+    _t = _StepClock("    [ro]")
     p = g.p
     M = g.M
     k = g.k
@@ -882,6 +904,7 @@ def read_out_contigs(g: _Graph, prefix: str):
     # below reads them there alone
     if type(g) is _Graph:
         succ, e, dist, cyclic = resolve_on_device(g, alive)
+        _t("succ_resolve")
     else:
         # a subclass (MeshGraph) builds the successor through its own
         # locate and resolves the chains with its own resolve_chains
@@ -914,6 +937,7 @@ def read_out_contigs(g: _Graph, prefix: str):
             fallback_nodes.add(int(node[s]))
             s = int(succ[s])
     head_states = head_states[(head_states <= mate) & ~hairpin]
+    _t("heads")
 
     recs = []   # (seq bytes, depth bytes, header str after id)
 
@@ -945,6 +969,7 @@ def read_out_contigs(g: _Graph, prefix: str):
         body_deps.fill(0)
         body_codes[off[cid] + pos] = rel
         body_deps[off[cid] + pos] = dep
+        _t("body scatters")
 
         # reference seed of each chain = the member node first in slot
         # order (read_out_contig scan order, contig.cpp:930): the k
@@ -955,6 +980,7 @@ def read_out_contigs(g: _Graph, prefix: str):
         am = native.seg_argmin(cid, g.prio[node[st_ids]], n_chains)
         seed_state = st_ids[am]                        # [n_chains]
         seed_pos = pos[am]
+        _t("seed argmin")
 
         hrev = head_states ^ 1
         # left-boundary char/depth in chain orientation: rev(head) emits
@@ -1011,6 +1037,7 @@ def read_out_contigs(g: _Graph, prefix: str):
                       f"\tRightEndKmer: {rkm} {rmark}-{rrep}"
                       f"\t{ctype}\n")
             recs.append((seq, dbytes, header))
+        _t("chain loop")
 
     # ---- cycles + hairpins: exact serial walker in slot order
     if fallback_nodes:
@@ -1066,6 +1093,7 @@ def read_out_contigs(g: _Graph, prefix: str):
                 st.small_num += 1
                 st.small_len += len(seq)
             contig_id += 2
+    _t("write files")
     return st
 
 
@@ -1079,14 +1107,22 @@ def assemble_doubling(table: NodeTable, params: AssembleParams, prefix: str,
     pointer-doubling readout (phase order per contig.cpp:54-102), chains
     resolved on ``device``.  Writes the same eight artifacts as the exact
     readout."""
+    _t = _StepClock("  [pd]")
     g = _Graph(table, params, device)
+    _t("graph init")
     g.calc_links()
+    _t("calc_links")
     g.write_kmer_freq(prefix + ".contig.kmer.freq")
+    _t("kmer.freq")
     if params.is_remove_tip:
         remove_tips(g, prefix + ".contig.tip.fa")
+        _t("tips")
     if params.is_remove_lowedge:
         remove_lowedges(g, prefix + ".contig.lowedge.fa")
+        _t("lowedges")
     if params.is_remove_bubble:
         remove_bubbles(g, prefix + ".contig.bubble.fa")
+        _t("bubbles")
     read_out_contigs(g, prefix)
+    _t("readout")
     return g.stats

@@ -6,8 +6,7 @@ The 1-bit table is a dense bit array over all 4^k k-mer indices, bit
 low-frequency cutoff, zlib-compressed in source blocks of 8M k-mers = 1 MiB,
 plus a text file of each compressed block's byte size
 (main_parallel_senior.cpp:71,285-295).  The 8-bit table holds one saturated
-count a k-mer in source blocks of 8 MiB (correct_error/main.cpp:48,190-215);
-the port reads it only.
+count a k-mer in source blocks of 8 MiB (correct_error/main.cpp:48,190-215).
 """
 
 from __future__ import annotations
@@ -19,19 +18,33 @@ import numpy as np
 SRC_BLOCK_KMERS = 8 * 1024 * 1024      # 8M k-mers per compression block
 
 
-def write_cz_bits(path: str, bitmap: np.ndarray) -> None:
-    """bitmap: uint8 array of 4^k/8 bytes.  zlib level 1, as the JAX
-    package writes it (the consumers read any level)."""
-    block_bytes = SRC_BLOCK_KMERS // 8
+def _write_blocks(path: str, table: np.ndarray, block_bytes: int,
+                  level: int) -> None:
+    """Deflate ``table`` in source blocks of block_bytes into ``path`` and
+    list each compressed block's size in ``path``.len."""
     sizes = []
     with open(path, "wb") as f:
-        for off in range(0, len(bitmap), block_bytes):
-            comp = zlib.compress(bitmap[off:off + block_bytes].tobytes(), 1)
+        for off in range(0, len(table), block_bytes):
+            comp = zlib.compress(table[off:off + block_bytes].tobytes(),
+                                 level)
             f.write(comp)
             sizes.append(len(comp))
     with open(path + ".len", "w") as f:
         for s in sizes:
             f.write(f"{s}\n")
+
+
+def write_cz_bits(path: str, bitmap: np.ndarray, level: int = 1) -> None:
+    """bitmap: uint8 array of 4^k/8 bytes.  zlib level 1 by default, as the
+    JAX package writes it (the consumers read any level)."""
+    _write_blocks(path, bitmap, SRC_BLOCK_KMERS // 8, level)
+
+
+def write_cz_bytes(path: str, freqs: np.ndarray, level: int = 1) -> None:
+    """The 8-bit table: freqs, one count a k-mer saturated at 255 (uint8,
+    4^k bytes), in source blocks of 8 MiB (correct_error/main.cpp:48,
+    190-194)."""
+    _write_blocks(path, freqs, SRC_BLOCK_KMERS, level)
 
 
 def _read_blocks(path: str, out: np.ndarray, block_bytes: int) -> np.ndarray:

@@ -1,7 +1,8 @@
 """One-line FASTQ/FASTA (optionally gzipped) to padded code batches.
 
-Counterpart of dbg_assembly_tpu/io/fastq.py, through the same native
-single-pass parser (native/fastq_engine.cpp).  A whole file decodes into
+Counterpart of dbg_assembly_tpu/io/fastq.py, with its two parsers: the
+native single-pass parser (native/fastq_engine.cpp) and, under
+DBG_PY_FASTQ=1 as in the JAX package, the per-record Python loop.  A whole file decodes into
 
     ReadBatch.codes      [N, Lmax] uint8   2-bit codes, N -> 0 (pad = 4)
     ReadBatch.quals      [N, Lmax] uint8   raw ASCII qualities (pad = 0)
@@ -24,7 +25,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import native
+from .. import dna, native
 
 
 @dataclass
@@ -39,13 +40,71 @@ class ReadBatch:
     def n_reads(self) -> int:
         return int(self.codes.shape[0])
 
+    @property
+    def n_bases(self) -> int:
+        return int(self.lengths.sum())
 
-def _read_maybe_gz(path: str) -> bytes:
+
+def _open_maybe_gz(path: str, mode: str = "rb"):
     with open(path, "rb") as f:
         magic = f.read(2)
-    opener = gzip.open if magic == b"\x1f\x8b" else open
-    with opener(path, "rb") as f:
-        return f.read()
+    if magic == b"\x1f\x8b":
+        return gzip.open(path, mode)
+    return open(path, mode)
+
+
+def _records_from_lines(lines: list[bytes], fmt: str):
+    """Yield (head, seq, qual | None) with the reference's guard-and-skip:
+    a record starts only at a lead line and takes the next 3 (1) lines; a
+    record cut short at the end is dropped."""
+    lead = b"@" if fmt == "fq" else b">"
+    i = 0
+    n = len(lines)
+    while i < n:
+        line = lines[i]
+        if line.startswith(lead):
+            if fmt == "fq":
+                if i + 3 >= n:
+                    break
+                yield line, lines[i + 1], lines[i + 3]
+                i += 4
+            else:
+                if i + 1 >= n:
+                    break
+                yield line, lines[i + 1], None
+                i += 2
+        else:
+            i += 1
+
+
+def _parse_py(data: bytes, fmt: str, strict_n: bool, max_len: int | None,
+              keep_heads: bool, keep_ascii: bool) -> ReadBatch:
+    """The JAX package's per-record parser (io/fastq.py:108-135)."""
+    heads, seqs, quals = [], [], []
+    for h, s, q in _records_from_lines(data.split(b"\n"), fmt):
+        heads.append(h)
+        seqs.append(s)
+        quals.append(q if q is not None else b"")
+    n = len(seqs)
+    lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=n)
+    Lmax = int(lens.max()) if n else 0
+    if max_len is not None:
+        Lmax = min(Lmax, max_len) if n else 0
+    codes = np.full((n, Lmax), 4, dtype=np.uint8)
+    qarr = np.zeros((n, Lmax), dtype=np.uint8)
+    aarr = np.zeros((n, Lmax), dtype=np.uint8) if keep_ascii else None
+    for i, (s, q) in enumerate(zip(seqs, quals)):
+        L = min(len(s), Lmax)
+        sb = np.frombuffer(s, dtype=np.uint8, count=L)
+        codes[i, :L] = dna.ascii_to_codes(sb, strict_n=strict_n)
+        if aarr is not None:
+            aarr[i, :L] = sb
+        if q:
+            ql = min(len(q), L)
+            qarr[i, :ql] = np.frombuffer(q, dtype=np.uint8, count=ql)
+    return ReadBatch(codes=codes, quals=qarr,
+                     lengths=np.minimum(lens, Lmax).astype(np.int32),
+                     heads=heads if keep_heads else [], seqs_ascii=aarr)
 
 
 def read_batch(path: str, fmt: str | None = None, strict_n: bool = False,
@@ -55,16 +114,21 @@ def read_batch(path: str, fmt: str | None = None, strict_n: bool = False,
     the k-mer alphabet.  fmt "fq"/"fa"; None guesses from the name; the
     first byte decides.  strict_n maps N to 4 instead of 0; max_len cuts
     the rows.  Headers are kept only on request (the JAX package keeps
-    them by default): the counting and contig stages never read them."""
+    them by default): the counting and contig stages never read them.
+    DBG_PY_FASTQ=1 parses with the Python loop (the same arrays)."""
     if fmt is None:
         base = path[:-3] if path.endswith(".gz") else path
         fmt = "fa" if base.endswith((".fa", ".fasta")) \
             or ".fa." in os.path.basename(path) else "fq"
-    data = _read_maybe_gz(path)
+    with _open_maybe_gz(path) as f:
+        data = f.read()
     if data[:1] == b">":
         fmt = "fa"
     elif data[:1] == b"@":
         fmt = "fq"
+    if os.environ.get("DBG_PY_FASTQ") == "1":
+        return _parse_py(data, fmt, strict_n, max_len, keep_heads,
+                         keep_ascii)
     codes, quals, lengths, hoff, hlen, aarr = native.fastq_parse(
         data, fq=(fmt == "fq"), strict_n=strict_n, max_len=max_len,
         keep_ascii=keep_ascii)

@@ -6,7 +6,10 @@ Outputs, in the formats the reference's consumers read:
   <lib>.kmer.freq.cz / .cz.len   1-bit-per-kmer table: bit set at the
                                  canonical index iff count > low_freq_cutoff
                                  (main_parallel_senior.cpp:273-329; strict
-                                 '>' per main.cpp:202)
+                                 '>' per main.cpp:202); or, with
+                                 table_format "8bit", one count byte a
+                                 k-mer saturated at 255 (4^k bytes of host
+                                 memory: 16 GiB at k = 17)
   <lib>.kmer.freq.stat           spectrum table (format of test/
                                  01.clean_correct/clean_reads.lib.kmer.freq.
                                  stat), counters capped at 65535.
@@ -59,10 +62,17 @@ def split_reads_by_quality(codes: np.ndarray, lengths: np.ndarray,
 
 def run(lib_path: str, ksize: int = 17, low_freq_cutoff: int = 1,
         fmt: str | None = None, out_prefix: str | None = None,
-        batch_reads: int = 200_000, qual_cutoff: int = 0,
-        qual_shift: int = 33, device="cuda") -> dict:
-    """Count every file of the .lib list and write the .cz and .stat files.
-    qual_cutoff > 0 turns on `-q` masking for FASTQ inputs."""
+        batch_reads: int = 200_000, table_format: str = "1bit",
+        qual_cutoff: int = 0, qual_shift: int = 33, device="cuda") -> dict:
+    """Count every file of the .lib list on ``device`` and write the .cz
+    and .stat files.  table_format "1bit": the high/low table
+    (correct_error_reads reads it); "8bit": one saturated count byte a
+    k-mer index, laid out on the host (correct_error reads it,
+    correct_error/main.cpp:161-220).  qual_cutoff > 0 turns on `-q`
+    masking for FASTQ inputs."""
+    if table_format not in ("1bit", "8bit"):
+        raise ValueError(f"table_format must be '1bit' or '8bit', not "
+                         f"{table_format!r}")
     from ..contig.pipeline import read_file_list
 
     prefix = out_prefix or (lib_path + ".kmer.freq")
@@ -77,8 +87,14 @@ def run(lib_path: str, ksize: int = 17, low_freq_cutoff: int = 1,
             counter.add(codes, lens)
     uniq, counts, total = counter.finalize()
 
-    bitmap = kc.freq_bitmap(uniq, counts, ksize, low_freq_cutoff)
-    czio.write_cz_bits(prefix + ".cz", bitmap)
+    if table_format == "8bit":
+        freqs = np.zeros(1 << (2 * ksize), dtype=np.uint8)
+        freqs[uniq.astype(np.int64)] = np.minimum(counts, 255)
+        czio.write_cz_bytes(prefix + ".cz", freqs)
+        bitmap = None
+    else:
+        bitmap = kc.freq_bitmap(uniq, counts, ksize, low_freq_cutoff)
+        czio.write_cz_bits(prefix + ".cz", bitmap)
 
     spec = kc.spectrum(counts, max_freq=65535)
     statio.write_kmerfreq_stat(prefix + ".stat", ksize, 65535, int(total),

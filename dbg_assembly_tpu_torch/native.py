@@ -2,13 +2,14 @@
 
 The same library as the JAX package's loader (dbg_assembly_tpu/native.py):
 native/build/libdbg_native.so, built on first use with ``make -C native``
-(g++).  This copy binds the entry points the port's slices call: the FASTQ
-parser, the streaming ingest table (the smoke test's oracle), the hash-layout
+(g++).  This copy binds the JAX loader's entry points: the FASTQ parser,
+the streaming ingest table (the smoke test's oracle), the hash-layout
 emulation, the exact contig readout engine, the host passes of the
-doubling readout (links, slot ranks, chain heads, seed argmin, the GCC 4.4
-length sort) with the host twins of its device chain resolution, the
-batch error corrector (``correct_error_reads --engine native``) and the
-contig index and read mapper (``map_pair --engine native``).
+doubling readout (links, slot ranks, chain heads, seed argmin, the GCC
+4.4 and host length sorts) with the host twins of its device chain
+resolution, the batch error corrector (``correct_error_reads --engine
+native``) and the contig index and read mapper (``map_pair --engine
+native``).
 """
 
 from __future__ import annotations
@@ -75,6 +76,9 @@ def _build_and_load() -> ctypes.CDLL:
     lo = ctypes.CDLL(_SO)
     lo.find_next_prime.restype = ctypes.c_uint64
     lo.find_next_prime.argtypes = [ctypes.c_uint64]
+    lo.hash_layout.restype = ctypes.c_int64
+    lo.hash_layout.argtypes = [_u64p, ctypes.c_int64, ctypes.c_uint64,
+                               _u8p, _i64p]
     lo.hash_layout_disp.restype = ctypes.c_int64
     lo.hash_layout_epochs.restype = ctypes.c_int64
     lo.madv_huge.restype = None
@@ -88,8 +92,13 @@ def _build_and_load() -> ctypes.CDLL:
                               ctypes.c_int, _i32p, ctypes.c_int64]
     lo.ingest_size.restype = ctypes.c_int64
     lo.ingest_size.argtypes = [ctypes.c_void_p]
+    lo.ingest_reserve.restype = None
+    lo.ingest_reserve.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
     lo.ingest_total.restype = ctypes.c_int64
     lo.ingest_total.argtypes = [ctypes.c_void_p]
+    lo.ingest_extract.restype = None
+    lo.ingest_extract.argtypes = [ctypes.c_void_p, _u64p, _i32p, _i32p,
+                                  _i64p]
     lo.ingest_extract_full.restype = None
     lo.ingest_extract_counts.restype = None
     lo.ingest_free.restype = None
@@ -115,6 +124,8 @@ def _build_and_load() -> ctypes.CDLL:
                               _i32p, _i32p, _i32p, _i32p, _i64p]
     lo.gcc44_sort_perm_desc.restype = None
     lo.gcc44_sort_perm_desc.argtypes = [_u64p, ctypes.c_int64, _i64p]
+    lo.stdsort_perm_desc.restype = None
+    lo.stdsort_perm_desc.argtypes = [_u64p, ctypes.c_int64, _i64p]
     lo.correct_batch.restype = None
     lo.correct_batch.argtypes = [
         _u8p, _i64p, _i32p, ctypes.c_int64, _u8p, ctypes.c_int64, _u8p,
@@ -146,6 +157,29 @@ class NativeIngest:
                          ctypes.c_int64(c.shape[0]), ctypes.c_int(c.shape[1]),
                          ln.ctypes.data_as(_i32p),
                          ctypes.c_int64(base_index))
+
+    def n_nodes(self) -> int:
+        return int(lib().ingest_size(self._h))
+
+    def reserve(self, expected_nodes: int) -> None:
+        """Pre-size the table for ``expected_nodes`` (one rehash now in
+        place of several doublings mid-stream)."""
+        lib().ingest_reserve(self._h, ctypes.c_uint64(expected_nodes))
+
+    def extract(self):
+        """(kmers u64, lcnt [n,4] i32, rcnt [n,4] i32, first_idx i64,
+        total) sorted by k-mer."""
+        n = self.n_nodes()
+        total = int(lib().ingest_total(self._h))
+        kmers = np.empty(n, np.uint64)
+        lcnt = np.empty((n, 4), np.int32)
+        rcnt = np.empty((n, 4), np.int32)
+        fidx = np.empty(n, np.int64)
+        lib().ingest_extract(
+            ctypes.c_void_p(self._h), kmers.ctypes.data_as(_u64p),
+            lcnt.ctypes.data_as(_i32p), rcnt.ctypes.data_as(_i32p),
+            fidx.ctypes.data_as(_i64p))
+        return kmers, lcnt, rcnt, fidx, total
 
     def extract_full(self):
         """(kmers u64, lcnt [n,4] i32, rcnt [n,4] i32, first_idx i64,
@@ -456,6 +490,30 @@ def gcc44_sort_perm_desc(lens: np.ndarray) -> np.ndarray:
                                ctypes.c_int64(len(ln)),
                                out.ctypes.data_as(_i64p))
     return out
+
+
+def stdsort_perm_desc(lens: np.ndarray) -> np.ndarray:
+    """Index permutation of this host's libstdc++ std::sort, descending by
+    length (its tie order may differ from gcc44_sort_perm_desc's)."""
+    ln = np.ascontiguousarray(lens, np.uint64)
+    out = np.empty(len(ln), np.int64)
+    lib().stdsort_perm_desc(ln.ctypes.data_as(_u64p),
+                            ctypes.c_int64(len(ln)),
+                            out.ctypes.data_as(_i64p))
+    return out
+
+
+def hash_layout(kmers_in_order: np.ndarray, size: int):
+    """Slot of each key inserted in the given order.  Returns (slots int64
+    [n], conflicts)."""
+    km = np.ascontiguousarray(kmers_in_order, dtype=np.uint64)
+    occ = _huge_zeros(size)
+    out = np.empty(len(km), dtype=np.int64)
+    conflicts = lib().hash_layout(
+        km.ctypes.data_as(_u64p), ctypes.c_int64(len(km)),
+        ctypes.c_uint64(size), occ.ctypes.data_as(_u8p),
+        out.ctypes.data_as(_i64p))
+    return out, int(conflicts)
 
 
 def hash_layout_disp(kmers_in_order: np.ndarray, size: int):

@@ -22,11 +22,14 @@ span.
 
 K-mers are int64 (2k <= 62 bits), where the JAX package holds uint64.
 Engines: "torch" (the index and the mapper on ``device``) and "native" (the
-shared C++ engine, native/map_engine.cpp).
+shared C++ engine, native/map_engine.cpp).  DBG_PY_MAP=1 selects, as in the
+JAX package, its numpy index and mapper on the host (index.py:98-150,
+197-300; the index's arrays numpy, its k-mers uint64): engine "python".
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,6 +52,9 @@ for _a, _b in zip(b"ACGTN", b"TGCAN"):
 
 @dataclass
 class ContigIndex:
+    """``engine`` is the one that built it: "torch" (tensors on its
+    device), "python" (numpy, k-mers uint64) or "native" (empty apart from
+    the contigs' rows)."""
     kmers: torch.Tensor     # [M] int64 sorted canonical
     ids: torch.Tensor       # [M] int32 contig index
     pos: torch.Tensor       # [M] int32 offset of k-mer start in contig
@@ -60,6 +66,7 @@ class ContigIndex:
     offsets: torch.Tensor   # [n_contigs + 1] int64
     lengths: torch.Tensor   # [n_contigs] int64
     native: object = None   # NativeMapIndex for the native engine
+    engine: str = "torch"
 
 
 def build(contig_seqs: list[bytes], ksize: int, engine: str = "torch",
@@ -68,12 +75,16 @@ def build(contig_seqs: list[bytes], ksize: int, engine: str = "torch",
     k-mer).  The torch engine builds the index on ``device`` as _build_py
     (index.py:98-150) does: the windows' keys sorted stably, the first
     payload of each run kept, ``uniq`` a run of one.  The native engine
-    builds it inside the C++ engine (its arrays here are empty)."""
+    builds it inside the C++ engine (its arrays here are empty).
+    DBG_PY_MAP=1 builds it with _build_py on the host, whatever the
+    engine."""
     if not 1 <= ksize <= 31:
         raise ValueError(f"k = {ksize}: the port's k-mers are int64, "
                          "1 <= k <= 31")
     if engine not in ("torch", "native"):
         raise ValueError(f"unknown map engine {engine!r}")
+    if os.environ.get("DBG_PY_MAP") == "1":
+        return _build_py(contig_seqs, ksize)
     if engine == "native":
         concat, offsets, lengths = _host_rows(contig_seqs)
         nmi = native.NativeMapIndex(ksize, concat, offsets)
@@ -81,7 +92,8 @@ def build(contig_seqs: list[bytes], ksize: int, engine: str = "torch",
         return ContigIndex(e, e.int(), e.int(), e.to(torch.uint8),
                            e.to(torch.uint8), ksize, torch.from_numpy(concat),
                            torch.from_numpy(offsets),
-                           torch.from_numpy(lengths), native=nmi)
+                           torch.from_numpy(lengths), native=nmi,
+                           engine="native")
     concat, codes, offsets, lengths = device_rows(contig_seqs, device)
     can, ids, pos, direct = window_keys(concat, codes, offsets, ksize)
     kmers, order = srt.sort(can, 2 * ksize, return_index=True)
@@ -95,6 +107,60 @@ def build(contig_seqs: list[bytes], ksize: int, engine: str = "torch",
     uniq = (run_len == 1).to(torch.uint8)
     return ContigIndex(kmers[first], ids[first], pos[first], direct[first],
                        uniq, ksize, concat, offsets, lengths)
+
+
+def _build_py(contig_seqs: list[bytes], ksize: int) -> ContigIndex:
+    """The JAX package's host index (index.py:98-150) in numpy: each
+    contig of at least k bases split at N runs, each block of at least k
+    bases chopped, the keys sorted stably, the first payload of each run
+    kept, ``uniq`` a run of one."""
+    concat, offsets, lengths = _host_rows(contig_seqs)
+    all_k, all_id, all_pos, all_dir = [], [], [], []
+    for i, seq in enumerate(contig_seqs):
+        if len(seq) < ksize:
+            continue
+        b = np.frombuffer(seq, dtype=np.uint8)
+        codes = dna.ascii_to_codes(b, strict_n=False)
+        # split at N runs (scaffold_to_contig): chop each block alone
+        isn = (b == ord("N")) | (b == ord("n"))
+        if isn.any():
+            bounds = np.flatnonzero(np.diff(np.concatenate(
+                [[True], isn, [True]]).astype(np.int8)))
+            blocks = [(bounds[j], bounds[j + 1])
+                      for j in range(0, len(bounds) - 1)
+                      if not isn[bounds[j]]]
+        else:
+            blocks = [(0, len(seq))]
+        for s, e in blocks:
+            if e - s < ksize:
+                continue
+            kk = dna.rolling_kmers(codes[s:e], ksize)
+            rc = dna.revcomp_kbit(kk, ksize)
+            fwd = kk < rc
+            can = np.where(fwd, kk, rc)
+            all_k.append(can)
+            all_id.append(np.full(len(can), i, np.int32))
+            all_pos.append((s + np.arange(len(can))).astype(np.int32))
+            all_dir.append(fwd.astype(np.uint8))
+
+    if not all_k:
+        return ContigIndex(np.zeros(0, np.uint64), np.zeros(0, np.int32),
+                           np.zeros(0, np.int32), np.zeros(0, np.uint8),
+                           np.zeros(0, np.uint8), ksize, concat, offsets,
+                           lengths, engine="python")
+    k = np.concatenate(all_k)
+    cid = np.concatenate(all_id)
+    cpos = np.concatenate(all_pos)
+    cdir = np.concatenate(all_dir)
+    order = np.argsort(k, kind="stable")
+    k, cid, cpos, cdir = k[order], cid[order], cpos[order], cdir[order]
+    first = np.ones(len(k), bool)
+    first[1:] = k[1:] != k[:-1]
+    starts = np.flatnonzero(first)
+    run_len = np.diff(np.concatenate([starts, [len(k)]]))
+    return ContigIndex(k[first], cid[first], cpos[first], cdir[first],
+                       (run_len == 1).astype(np.uint8), ksize, concat,
+                       offsets, lengths, engine="python")
 
 
 def _host_rows(contig_seqs: list[bytes]):
@@ -152,12 +218,19 @@ def window_keys(concat: torch.Tensor, codes: torch.Tensor,
 
 def lookup(ix: ContigIndex, kmers: torch.Tensor):
     """Vectorized exist_kmerset: (found, ids, pos, direct, uniq) of each
-    k-mer, on the index's device.  Where a k-mer is absent the payload is
-    another entry's (or 0 on an empty index)."""
-    if ix.native is not None:
-        raise RuntimeError("lookup() needs the torch engine's index: the "
-                           "native engine keeps its arrays inside the C++ "
-                           "engine")
+    k-mer, on the index's device (numpy uint64 k-mers on a python
+    engine's index).  Where a k-mer is absent the payload is another
+    entry's (or 0 on an empty index)."""
+    if ix.engine == "native":
+        raise RuntimeError("lookup() needs the torch or python engine's "
+                           "index: the native engine keeps its arrays "
+                           "inside the C++ engine")
+    if ix.engine == "python":
+        loc = np.searchsorted(ix.kmers, kmers)
+        loc = np.clip(loc, 0, max(len(ix.kmers) - 1, 0))
+        found = (len(ix.kmers) > 0) & (ix.kmers[loc] == kmers)
+        return (found, ix.ids[loc], ix.pos[loc], ix.direct[loc],
+                ix.uniq[loc])
     M = ix.kmers.shape[0]
     if M == 0:
         z = torch.zeros_like(kmers)
@@ -187,8 +260,8 @@ def map_reads(ix: ContigIndex, codes: np.ndarray, ascii_seq: np.ndarray,
     """Map each read (first qualifying seed, ungapped extension): on the
     index's device ``chunk`` reads at a time for the torch engine (by
     default as many as hold CHUNK_WINDOWS k-mer windows), in the C++ engine
-    for the native one.  Fields other than ``mapped`` are meaningful only
-    where ``mapped`` is set.
+    for the native one, in numpy on the host for the python one.  Fields
+    other than ``mapped`` are meaningful only where ``mapped`` is set.
 
     search_start: scalar or per-read array of 1-based positions to begin the
     seed scan (map_reads' second-alignment pass uses align_read_end+1,
@@ -197,12 +270,15 @@ def map_reads(ix: ContigIndex, codes: np.ndarray, ascii_seq: np.ndarray,
     ss = np.asarray(search_start)
     if ss.ndim == 0:
         ss = np.full(N, int(ss), np.int64)
-    if ix.native is not None:
+    if ix.engine == "native":
         mapped, cid, rs, re_, cs, ce, dr, ident = ix.native.map(
             codes, ascii_seq, lengths, ss, seed_kmer_num, min_identity)
         return MapResult(mapped=mapped.astype(bool), contig=cid,
                          read_start=rs, read_end=re_, contig_start=cs,
                          contig_end=ce, direct=dr, identity=ident)
+    if ix.engine == "python":
+        return _map_reads_py(ix, codes, ascii_seq, lengths, seed_kmer_num,
+                             min_identity, ss)
     dev = ix.kmers.device
     if chunk is None:
         windows = max(codes.shape[1] - ix.ksize + 1, 1)
@@ -222,6 +298,100 @@ def map_reads(ix: ContigIndex, codes: np.ndarray, ascii_seq: np.ndarray,
         for o, r in zip(outs, res):
             o[off:end] = r.cpu().numpy()
     return MapResult(*outs)
+
+
+def _map_reads_py(ix: ContigIndex, codes: np.ndarray,
+                  ascii_seq: np.ndarray, lengths: np.ndarray, S: int,
+                  min_identity: float, ss: np.ndarray) -> MapResult:
+    """The JAX package's numpy mapper (index.py:215-300) over a python
+    engine's index, every read at once."""
+    k = ix.ksize
+    N, L = codes.shape
+    P = max(L - k + 1, 0)
+    km = dna.rolling_kmers(codes, k)
+    rc = dna.revcomp_kbit(km, k)
+    read_dir = (km < rc).astype(np.uint8)
+    can = np.where(km < rc, km, rc)
+    found, cid, cpos, cdir, cuniq = lookup(ix, can.reshape(-1))
+    found = found.reshape(N, P)
+    cid = cid.reshape(N, P)
+    cpos = cpos.reshape(N, P).astype(np.int64)
+    cdir = cdir.reshape(N, P)
+    cuniq = cuniq.reshape(N, P)
+
+    ok1 = found & (cuniq == 1)
+    pos_i = np.arange(P)
+    # i runs over search_start-1 .. read_len - k - S (inclusive)
+    in_range = (pos_i[None, :] >= ss[:, None] - 1) & \
+               (pos_i[None, :] <= lengths[:, None].astype(np.int64) - k - S)
+    valid_pair = np.zeros((N, P), bool)
+    if P > S:
+        valid_pair[:, :P - S] = (
+            ok1[:, :P - S] & ok1[:, S:]
+            & (cid[:, :P - S] == cid[:, S:])
+            & (np.abs(cpos[:, S:] - cpos[:, :P - S]) == S))
+    valid = valid_pair & in_range
+    has = valid.any(axis=1)
+    seed_i = np.argmax(valid, axis=1)               # first valid position
+
+    rows = np.arange(N)
+    sid = cid[rows, seed_i]
+    p1 = cpos[rows, seed_i]
+    p2 = cpos[rows, np.minimum(seed_i + S, P - 1)]
+    is_f = read_dir[rows, seed_i] == cdir[rows, seed_i]
+    seed_contig_start = np.where(is_f, p1 + 1, p2 + 1)
+    seed_contig_end = np.where(is_f, p2 + k, p1 + k)
+    seed_read_start = seed_i + 1
+    seed_read_end = seed_i + S + k
+
+    Lr = lengths.astype(np.int64)
+    clen = ix.lengths[np.clip(sid, 0, max(len(ix.lengths) - 1, 0))] \
+        if len(ix.lengths) else np.zeros(N, np.int64)
+    coff = ix.offsets[np.clip(sid, 0, max(len(ix.offsets) - 2, 0))] \
+        if len(ix.lengths) else np.zeros(N, np.int64)
+
+    # working coordinates on the (possibly reverse-complemented) read
+    w_start = np.where(is_f, seed_read_start, Lr - seed_read_end + 1)
+    w_end = np.where(is_f, seed_read_end, Lr - seed_read_start + 1)
+    ext_l = np.minimum(w_start - 1, seed_contig_start - 1)
+    ext_r = np.minimum(Lr - w_end, clen - seed_contig_end)
+    a_read_start = w_start - ext_l
+    a_read_end = w_end + ext_r
+    a_ctg_start = seed_contig_start - ext_l
+    a_ctg_end = seed_contig_end + ext_r
+    align_len = a_read_end - a_read_start + 1
+
+    # mismatches of the oriented read against the contig over the aligned
+    # span, the seed span left out (extend_align_region starts at the seed
+    # edges): forward t -> ascii[t-1], reverse t -> comp[ascii[L - t]]
+    t = np.arange(1, L + 1)[None, :]
+    t_in = ((t >= a_read_start[:, None]) & (t <= a_read_end[:, None])
+            & ((t < w_start[:, None]) | (t > w_end[:, None])))
+    fwd_chars = ascii_seq[:, :L]
+    rev_idx = np.clip(Lr[:, None] - t, 0, L - 1)
+    rev_chars = _COMP_TABLE[np.take_along_axis(ascii_seq, rev_idx, axis=1)]
+    oriented = np.where(is_f[:, None], fwd_chars, rev_chars)
+    cposx = coff[:, None] + a_ctg_start[:, None] - 1 \
+        + (t - a_read_start[:, None])
+    cposx = np.clip(cposx, 0, max(len(ix.concat) - 1, 0))
+    ctg_chars = ix.concat[cposx] if len(ix.concat) \
+        else np.zeros_like(oriented)
+    mm = np.sum((oriented != ctg_chars) & t_in, axis=1)
+    # float parity: identity = float(1.0 (double) - float(mm / len))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        frac = (mm.astype(np.float32) / align_len.astype(np.float32))
+    identity = (np.float64(1.0) - frac.astype(np.float64)).astype(np.float32)
+
+    out_read_start = np.where(is_f, a_read_start, Lr - a_read_end + 1)
+    out_read_end = np.where(is_f, a_read_end, Lr - a_read_start + 1)
+    # float against double promotes to double (map_pair.cpp:288)
+    mapped = has & ~(identity.astype(np.float64) < np.float64(min_identity))
+    return MapResult(mapped=mapped, contig=sid.astype(np.int32),
+                     read_start=out_read_start.astype(np.int32),
+                     read_end=out_read_end.astype(np.int32),
+                     contig_start=a_ctg_start.astype(np.int32),
+                     contig_end=a_ctg_end.astype(np.int32),
+                     direct=is_f.astype(np.uint8), identity=identity)
 
 
 def _map_kernel(ix: ContigIndex, codes: torch.Tensor,

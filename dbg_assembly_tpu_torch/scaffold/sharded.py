@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..parallel.mesh import blocks
 from . import index as six
@@ -22,16 +23,25 @@ from . import index as six
 
 def replicate(mesh, ix: six.ContigIndex) -> list[six.ContigIndex]:
     """The index's arrays copied once to each slot's device (the same
-    tensors where they are there already)."""
-    if ix.native is not None:
+    tensors where they are there already).  A python engine's numpy index
+    goes to the slots as tensors, as JAX's sharded mapper puts an array
+    index on its devices (scaffold/sharded.py:55-76)."""
+    if ix.engine == "native":
         # the native engine keeps its arrays inside the C++ engine
-        raise ValueError("map_reads_sharded needs the torch engine's index "
-                         "(index.build(..., engine='torch'))")
+        raise ValueError("map_reads_sharded needs the torch engine's or "
+                         "the python engine's index")
+
+    def tensor(a):
+        if ix.engine == "python":
+            return torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64
+                                    else a)
+        return a
+
     return [six.ContigIndex(
-        *(getattr(ix, f).to(dev) for f in ("kmers", "ids", "pos", "direct",
-                                           "uniq")),
-        ix.ksize, *(getattr(ix, f).to(dev) for f in ("concat", "offsets",
-                                                     "lengths")))
+        *(tensor(getattr(ix, f)).to(dev) for f in ("kmers", "ids", "pos",
+                                                   "direct", "uniq")),
+        ix.ksize, *(tensor(getattr(ix, f)).to(dev)
+                    for f in ("concat", "offsets", "lengths")))
         for dev in mesh.devices]
 
 
