@@ -17,8 +17,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      version and the JAX triage's numpy expectation exactly; each process
      starts with its counts at 0 and reports its launches;
   4. probes vs plain on the card: each probe kernel against its plain
-     version on the probe's own input, exact, timed with CUDA events beside
-     its plain version and, where one PyTorch call computes it, that call;
+     version on the probe's own input, exact, then, after a warm-up, timed
+     with CUDA events in turns plain / kernel / kernel / plain / library
+     (the one PyTorch call that computes it, where there is one), 1000
+     calls a run, and by the profiler's kernel time and the host time a
+     call; the launch path's host steps one by one; the redesigned
+     copy_f32 and grid_block also exact at shapes that take their scalar
+     paths and, with the library call, at a shape where bytes decide
+     (256 MiB in, 256 MiB out), timed there against their bytes bound;
   5. kernel vs plain on the card: chop against chop_plain on the same CUDA
      tensors, both modes, exact equality, at the shapes its tiling makes
      hard (k 1/16/17/31; one row; N not a multiple of a tile's rows; L 150,
@@ -263,11 +269,121 @@ def _probe_ops(name: str, x: torch.Tensor) -> int:
     return n
 
 
+# the redesigned probes at a shape where bytes decide (256 MiB in, 256 MiB
+# out), and inputs that take their scalar paths: a length not a multiple of
+# 4, columns not a multiple of 4, a pointer 4 bytes past 16-byte alignment
+PROBE_LARGE_SHAPES = {"copy_f32": (524_288, 128), "grid_block": (262_144, 256)}
+PROBE_EDGE_SHAPES = {"copy_f32": ((3, 5), (1, 1), (8, 128), (1000, 1001)),
+                     "grid_block": ((16, 130), (8, 1), (64, 256),
+                                    (8, 1024))}
+PROBE_ITERS = 1000     # calls a timed run: steady at a few µs a call
+LARGE_ITERS = 200      # at the large shapes, 36 ms a run
+
+
+def _steady_turns(fns: dict, iters: int = PROBE_ITERS) -> dict:
+    """CUDA-event ms a call of each of fns' plain, kernel and library
+    (None to skip), each warmed up by ``iters`` calls, then timed in turns
+    plain / kernel / kernel / plain / library, ``iters`` calls a run;
+    returns name -> the runs' means."""
+    for fn in fns.values():
+        if fn is not None:
+            for _ in range(iters):
+                fn()
+    torch.cuda.synchronize()
+    runs = {}
+    for name in ("plain", "kernel", "kernel", "plain", "library"):
+        if fns.get(name) is not None:
+            runs.setdefault(name, []).append(_cuda_ms(fns[name], iters))
+    return runs
+
+
+def _host_split(probes, x: torch.Tensor) -> dict:
+    """Host µs a call of each step of the probes' launch path on the
+    copy_f32 probe's input (iters calls each, the card idle at the start
+    of each), beside the whole wrapper and torch.mul."""
+    fn = probes._entry("copy_f32")
+    out = torch.empty_like(x)
+    dev = x.get_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    steps = {
+        "wrapper": lambda: probes.copy_f32(x),
+        "checks": lambda: probes._on_card(x, torch.float32),
+        "empty_like": lambda: torch.empty_like(x),
+        "current_device": torch.cuda.current_device,
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "data_ptr x2": lambda: (x.data_ptr(), out.data_ptr()),
+        "ctypes launch": lambda: fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                                    stream),
+        "torch.mul": lambda: torch.mul(x, 2.0)}
+    return {k: _host_ms(f, PROBE_ITERS) * 1e3 for k, f in steps.items()}
+
+
+def _probe_edges(probes, name: str) -> None:
+    """The kernel == its plain version at PROBE_EDGE_SHAPES, contiguous
+    and 4 bytes past alignment (the scalar paths)."""
+    p = probes.PROBES[name]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for shape in PROBE_EDGE_SHAPES[name]:
+        n = shape[0] * shape[1]
+        buf = torch.randn(n + 1, device="cuda", generator=g)
+        for x in (buf[:n].view(shape), buf[1:].view(shape)):
+            got = p.kernel(x)
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, p.plain(x))
+            if err != 0:
+                raise AssertionError(f"probe {name} {shape} at offset "
+                                     f"{x.storage_offset()}: kernel != plain"
+                                     f", max abs err {err}")
+
+
+def _probe_large(probes, name: str, lib) -> dict:
+    """The kernel at PROBE_LARGE_SHAPES[name] == its plain version and
+    torch's call, exactly; timed in turns beside both."""
+    p = probes.PROBES[name]
+    shape = PROBE_LARGE_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(shape, device="cuda", generator=g)
+    got = p.kernel(x)
+    torch.cuda.synchronize()
+    want = p.plain(x)
+    err = _max_abs_err(got, want)
+    if err != 0 or not torch.equal(lib(x), want[0]):
+        raise AssertionError(f"probe {name} {shape}: kernel or library != "
+                             f"plain (kernel max abs err {err})")
+    del got, want
+    runs = _steady_turns({"plain": lambda: p.plain(x),
+                          "kernel": lambda: p.kernel(x),
+                          "library": lambda: lib(x)}, LARGE_ITERS)
+    bound_ms, bound_by = _bound(2 * x.nbytes, x.numel())
+    ms = sum(runs["kernel"]) / 2
+    rec = {"shape_large": list(shape), "max_abs_err_large": err,
+           "ms_large": ms, "ms_large_runs": runs["kernel"],
+           "plain_ms_large": sum(runs["plain"]) / 2,
+           "library_ms_large": runs["library"][0],
+           "bound_ms_large": bound_ms, "bound_by_large": bound_by,
+           "share_large": bound_ms / ms}
+    _log(f"probe {name} {shape}: kernel {runs['kernel'][0]:.4f} / "
+         f"{runs['kernel'][1]:.4f} ms, plain {runs['plain'][0]:.4f} / "
+         f"{runs['plain'][1]:.4f} ms, library {runs['library'][0]:.4f} ms;"
+         f" bound {bound_ms:.4f} ms ({bound_by}), share "
+         f"{rec['share_large']:.3f}")
+    return rec
+
+
 def phase_probes(probes) -> dict:
-    """Each probe kernel against its plain version on its own input."""
+    """Each probe kernel against its plain version on its own input, then
+    timed in turns beside it and, where one PyTorch call computes it, that
+    call: the CUDA-event ms a call, the profiler's kernel time and the host
+    time a call; the redesigned two also at their edge and large shapes."""
+    inputs = {name: probes.to_torch(p.make_input()).cuda()
+              for name, p in probes.PROBES.items()}
+    device_ms = _profiled_each(
+        {f"{name}_kernel": (lambda p=p, x=x: p.kernel(x)) for (name, p), x
+         in zip(probes.PROBES.items(), inputs.values())}, 100)
     out = {}
     for name, p in probes.PROBES.items():
-        x = probes.to_torch(p.make_input()).cuda()
+        x = inputs[name]
         got = p.kernel(x)
         torch.cuda.synchronize()
         want = p.plain(x)
@@ -275,21 +391,42 @@ def phase_probes(probes) -> dict:
         if err != 0:
             raise AssertionError(f"probe {name} kernel differs from its plain"
                                  f" version on the card: max abs err {err}")
-        ms, plain_ms = _turns(f"probe {name} {tuple(x.shape)}",
-                              lambda: p.kernel(x), lambda: p.plain(x))
         lib = _PROBE_LIBRARY.get(name)
-        library_ms = None
-        if lib is not None:
-            if not torch.equal(lib(x), want[0]):
-                raise AssertionError(f"probe {name}: library call != plain")
-            library_ms = _cuda_ms(lambda: lib(x))
+        if lib is not None and not torch.equal(lib(x), want[0]):
+            raise AssertionError(f"probe {name}: library call != plain")
+        runs = _steady_turns({"plain": lambda: p.plain(x),
+                              "kernel": lambda: p.kernel(x),
+                              "library": lib and (lambda: lib(x))})
         nbytes = x.nbytes + sum(w.nbytes for w in want)
         bound_ms, bound_by = _bound(nbytes, _probe_ops(name, x))
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms}
+        rec = {"max_abs_err": err, "ms": sum(runs["kernel"]) / 2,
+               "ms_runs": runs["kernel"],
+               "plain_ms": sum(runs["plain"]) / 2,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": runs["library"][0] if lib else None,
+               "device_ms": device_ms[f"{name}_kernel"],
+               "host_ms": _host_ms(lambda: p.kernel(x), PROBE_ITERS),
+               "library_host_ms": (_host_ms(lambda: lib(x), PROBE_ITERS)
+                                   if lib else None)}
+        _log(f"probe {name} {tuple(x.shape)} ({PROBE_ITERS} calls a run): "
+             f"kernel {runs['kernel'][0]:.4f} / {runs['kernel'][1]:.4f} ms, "
+             f"plain {runs['plain'][0]:.4f} / {runs['plain'][1]:.4f} ms, "
+             f"library {rec['library_ms']}; profiler kernel "
+             f"{rec['device_ms']} ms; host {rec['host_ms']:.4f} ms a call "
+             f"(library {rec['library_host_ms']})")
+        if name in PROBE_LARGE_SHAPES:
+            _probe_edges(probes, name)
+            rec.update(_probe_large(probes, name, lib))
+        if name == "copy_f32":
+            rec["host_split_us"] = _host_split(probes, x)
+            _log("probe launch path, host µs a call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in rec["host_split_us"].items()))
+        out[name] = rec
+    torch.cuda.empty_cache()
     _log("probe kernels == plain versions on the card: "
-         + ", ".join(out))
+         + ", ".join(out) + "; copy_f32 and grid_block also at "
+         + ", ".join(f"{n} {s}" for n, s in PROBE_EDGE_SHAPES.items())
+         + " (contiguous and 4 bytes past alignment) and their large shapes")
     return out
 
 
@@ -370,18 +507,30 @@ def _profiled_ms(fn, pattern: str, iters: int = 10):
     """Mean device time (ms) of the kernels whose name holds ``pattern``,
     from one torch.profiler run of ``iters`` calls; None when the profiler
     shows no such kernel."""
+    return _profiled_each({pattern: fn}, iters)[pattern]
+
+
+def _profiled_each(fns: dict, iters: int) -> dict:
+    """_profiled_ms of each pattern -> fn of ``fns``, from one
+    torch.profiler run of ``iters`` calls of each (a profiler run costs
+    seconds to start)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        for fn in fns.values():
+            for _ in range(iters):
+                fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if pattern in e.key]
-    n = sum(e.count for e in evs)
-    us = sum(e.self_device_time_total for e in evs)
-    return us / n / 1e3 if n and us else None
+    out = {}
+    for pattern in fns:
+        evs = [e for e in prof.key_averages() if pattern in e.key]
+        n = sum(e.count for e in evs)
+        us = sum(e.self_device_time_total for e in evs)
+        out[pattern] = us / n / 1e3 if n and us else None
+    return out
 
 
 def phase_kernel(chop) -> dict:
@@ -565,7 +714,8 @@ def phase_sort(srt, chop, files: list[str]) -> dict:
     shapes.append(("ingest", keys, 63, True))
     del codes, lengths
     # an 8-part merge: the uniques of the library's first 8 ingest batches
-    c = np.concatenate([fastq.read_batch(f).codes for f in files])
+    c = np.concatenate([fastq.read_batch(f, keep_heads=False).codes
+                        for f in files])
     parts = []
     for b in range(8):
         cb = torch.from_numpy(c[b * 100_000:(b + 1) * 100_000]).cuda()
@@ -923,7 +1073,7 @@ def make_soiled(workdir: str, files: list[str]) -> tuple[list[str], int]:
     from dbg_assembly_tpu_torch.tools import soil
     out, n = [], 0
     for mate, path in enumerate(files, start=1):
-        b = fastq.read_batch(path, keep_ascii=True)
+        b = fastq.read_batch(path, keep_heads=False, keep_ascii=True)
         reads, quals = b.seqs_ascii.copy(), b.quals.copy()
         soil.soil(reads, quals, mate, seed=50 + mate)
         out.append(os.path.join(workdir, f"soiled_{mate}.fq"))
@@ -1300,8 +1450,9 @@ def phase_workflow_steps(workdir: str, soiled: list[str],
         return _step(steps, name, fn)
 
     step("parse a plain file (phase 8's input)",
-         lambda: fastq.read_batch(files[0]))
-    b = step("parse a cleaned .gz file", lambda: fastq.read_batch(cleaned[0]))
+         lambda: fastq.read_batch(files[0], keep_heads=False))
+    b = step("parse a cleaned .gz file", lambda: fastq.read_batch(
+        cleaned[0], keep_heads=False))
     codes, lens = step("-q 10 split of that file", lambda:
                        kmerfreq.split_reads_by_quality(
                            b.codes, b.lengths, b.quals, 17, 10))
@@ -1517,7 +1668,7 @@ def phase_oracle(files: list[str], lib: str):
     nat = native.NativeIngest(31)
     pos, batch = 0, 100_000      # GraphBuilder's batches and stream layout
     for path in files:
-        b = fastq.read_batch(path)
+        b = fastq.read_batch(path, keep_heads=False)
         if b.codes.shape[1] > 250 or (b.lengths < 31).any():
             raise AssertionError("oracle assumes reads of 31..250 bases")
         for off in range(0, b.n_reads, batch):
@@ -1540,7 +1691,7 @@ def phase_oracle(files: list[str], lib: str):
     counter = KmerCounter(17, device="cuda")
     nat = native.NativeIngest(17)
     for path in files:
-        b = fastq.read_batch(path)
+        b = fastq.read_batch(path, keep_heads=False)
         counter.add(b.codes, b.lengths)
         nat.add(b.codes, b.lengths, 0)
     gu, gc, gt = counter.finalize()
@@ -1848,7 +1999,8 @@ def phase_mesh_kernels(chop, srt, kern: dict, sort_rec: dict,
     the kernels' records under _mesh_slot, _mesh_route and _mesh_owner."""
     from dbg_assembly_tpu_torch.io import fastq
     from dbg_assembly_tpu_torch.ops.chop import SENTINEL
-    c = torch.from_numpy(fastq.read_batch(files[0]).codes[:100_000]).cuda()
+    c = torch.from_numpy(fastq.read_batch(
+        files[0], keep_heads=False).codes[:100_000]).cuda()
     L = c.shape[1]
     lengths = torch.full((c.shape[0],), L, dtype=torch.int32, device="cuda")
     n = c.shape[0] // MESH_SLOTS
@@ -1992,7 +2144,7 @@ def phase_multiprocess(workdir: str, lib: str, files: list[str],
         _check_shards(title, os.path.join(workdir, name), n_proc, table)
 
     # (c) the spectrum at the JAX benchmark's batch (bench.py:42-45)
-    b = fastq.read_batch(files[0])
+    b = fastq.read_batch(files[0], keep_heads=False)
     codes = torch.from_numpy(b.codes[:250_000]).cuda()
     lengths = torch.from_numpy(b.lengths[:250_000]).cuda()
     chop.launches = srt.launches = 0
@@ -2178,7 +2330,7 @@ def phase_hosttwins(workdir: str, lib: str, files: list[str],
             raise AssertionError("(a) 8-bit .stat != 1-bit .stat")
     counter = KmerCounter(15, device="cuda")
     for path in files:
-        b = fastq.read_batch(path)
+        b = fastq.read_batch(path, keep_heads=False)
         counter.add(b.codes, b.lengths)
     u, c, _ = counter.finalize()
     if not (np.array_equal(freqs[u.astype(np.int64)], np.minimum(c, 255))
@@ -2386,7 +2538,9 @@ def main() -> int:
         _log(f"ptxas, {src}.cu: " + " | ".join(build.resources(src)))
 
     probe_launches = phase_triage()
+    t = time.perf_counter()
     probe_recs = phase_probes(probes)
+    _log(f"phase 4: {time.perf_counter() - t:.1f} s")
     kern = phase_kernel(chop)
 
     with tempfile.TemporaryDirectory() as workdir:

@@ -155,7 +155,7 @@ class GraphBuilder:
     builder's, array for array."""
 
     def __init__(self, ksize: int, max_read_len: int = 250,
-                 batch_reads: int = 100_000, device="cuda", mesh=None):
+                 batch_reads: int = 100_000, mesh=None, device="cuda"):
         if not 1 <= ksize <= 31:
             raise ValueError(f"k={ksize} outside 1..31")
         self.ksize = ksize
@@ -293,6 +293,7 @@ def build_from_files(files: list[str], ksize: int, fmt: str = "fq",
     from ..io import fastq
     gb = GraphBuilder(ksize, max_read_len, device=device)
     for path in files:
-        batch = fastq.read_batch(path, fmt=fmt, strict_n=False)
+        batch = fastq.read_batch(path, fmt=fmt, strict_n=False,
+                                 keep_heads=False)
         gb.add(batch.codes, batch.lengths)
     return gb.finalize()

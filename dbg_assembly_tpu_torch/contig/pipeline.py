@@ -33,7 +33,8 @@ def read_file_list(path: str) -> list[str]:
 
 
 def _read(path: str, fmt: int):
-    return fastq.read_batch(path, fmt="fq" if fmt == 1 else "fa")
+    return fastq.read_batch(path, fmt="fq" if fmt == 1 else "fa",
+                            keep_heads=False)
 
 
 def _ingest(files, fmt, ksize, max_read_len, device, ranges=None,

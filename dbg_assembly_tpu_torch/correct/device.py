@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import dna
+from .. import dna, resolve_device
 
 R_MAX = 24    # low/high region slots per read
 C_MAX = 6     # phase-2 candidate slots per read
@@ -75,11 +75,11 @@ def _tables(device):
             torch.from_numpy(_BASES_NP).to(device))
 
 
-def bitmap_device(bitmap: np.ndarray, device) -> torch.Tensor:
+def bitmap_device(bitmap: np.ndarray, device="cuda") -> torch.Tensor:
     """The packed 1-bit table as little-endian 32-bit words on ``device``:
     an int32 tensor viewed on the host (2^29 words, 2 GiB, at k = 17)."""
     words = np.ascontiguousarray(bitmap).view("<i4")
-    return torch.from_numpy(words).to(device)
+    return torch.from_numpy(words).to(resolve_device(device))
 
 
 def _probe(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

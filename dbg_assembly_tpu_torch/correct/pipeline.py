@@ -129,8 +129,9 @@ def _engine(requested: str = "auto") -> str:
 
 
 def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
-                 fmt: int = 1, engine: str = "auto", device="cuda",
-                 words=None, chunk: int = DEFAULT_CHUNK, mesh=None) -> dict:
+                 fmt: int = 1, engine: str = "auto", mesh=None,
+                 device="cuda", words=None,
+                 chunk: int = DEFAULT_CHUNK) -> dict:
     """Correct one read file and write its .correct.fa.gz and
     .correct.stat.  engine as in the module docstring; device, words (the
     table on the device, or its slots with a mesh) and mesh serve the
@@ -230,8 +231,8 @@ def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
 
 
 def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
-        fmt: int = 1, engine: str = "auto", device="cuda",
-        mesh_devices: int = 0) -> list[dict]:
+        fmt: int = 1, engine: str = "auto", mesh_devices: int = 0,
+        device="cuda") -> list[dict]:
     """correct_error_reads over every file of the .lib list.  The torch
     engine puts the table on ``device`` once for all files.  mesh_devices
     > 0 shards it over that many slots on ``device`` (the k > 17 capacity
@@ -254,8 +255,8 @@ def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
         words = shard_bitmap(mesh, bitmap)
     elif dev is not None:
         words = dev_engine.bitmap_device(bitmap, dev)
-    return [correct_file(path, bitmap, params, fmt, engine, dev, words=words,
-                         mesh=mesh)
+    return [correct_file(path, bitmap, params, fmt, engine, mesh, dev,
+                         words)
             for path in read_file_list(lib_path)]
 
 

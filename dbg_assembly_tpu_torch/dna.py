@@ -52,9 +52,10 @@ def bit2seq(kbit: int, ksize: int) -> str:
                    for i in range(ksize))
 
 
-def seq2bit(codes: np.ndarray) -> np.ndarray:
+def seq2bit(codes: np.ndarray, ksize: int | None = None) -> np.ndarray:
     """Pack a code array [..., k] into uint64 k-mers (parity
-    seqKmer.cpp:34-41)."""
+    seqKmer.cpp:34-41).  ksize is accepted and unused, as in JAX's
+    (dbg_assembly_tpu/dna.py:89): k is the last axis."""
     c = np.asarray(codes, dtype=np.uint64)
     out = np.zeros(c.shape[:-1], dtype=np.uint64)
     for i in range(c.shape[-1]):

@@ -108,14 +108,16 @@ def _parse_py(data: bytes, fmt: str, strict_n: bool, max_len: int | None,
 
 
 def read_batch(path: str, fmt: str | None = None, strict_n: bool = False,
-               max_len: int | None = None, keep_heads: bool = False,
+               max_len: int | None = None, keep_heads: bool = True,
                keep_ascii: bool = False) -> ReadBatch:
     """Load a whole one-line FASTQ/FASTA(.gz) file into a padded batch in
     the k-mer alphabet.  fmt "fq"/"fa"; None guesses from the name; the
     first byte decides.  strict_n maps N to 4 instead of 0; max_len cuts
-    the rows.  Headers are kept only on request (the JAX package keeps
-    them by default): the counting and contig stages never read them.
-    DBG_PY_FASTQ=1 parses with the Python loop (the same arrays)."""
+    the rows.  Headers are kept by default, as JAX's read_batch keeps them
+    (dbg_assembly_tpu/io/fastq.py:76); keep_heads=False gives heads=[]
+    and saves their copies (the counting and contig stages pass it, as
+    JAX's callers do).  DBG_PY_FASTQ=1 parses with the Python loop (the
+    same arrays)."""
     if fmt is None:
         base = path[:-3] if path.endswith(".gz") else path
         fmt = "fa" if base.endswith((".fa", ".fasta")) \

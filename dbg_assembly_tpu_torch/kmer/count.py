@@ -24,12 +24,18 @@ from ..ops import sort as radix
 from ..ops.chop import SENTINEL, chop
 
 
-def chop_canonical(codes: torch.Tensor, lengths: torch.Tensor, ksize: int):
-    """[N, L] codes + [N] lengths -> (sorted flat canonical k-mers [N*P],
-    n_valid); the SENTINEL of the invalid windows sorts to the end."""
+def chop_canonical(codes: torch.Tensor, lengths: torch.Tensor, ksize: int,
+                   sort: bool = True):
+    """[N, L] codes + [N] lengths -> (flat canonical k-mers [N*P], n_valid)
+    with SENTINEL at the invalid windows.  sort=True (the default, as in
+    JAX's chop_canonical, dbg_assembly_tpu/kmer/count.py:37) sorts the
+    vector, the sentinels to the end; sort=False returns it row-major, as
+    the chop wrote it, and launches no sort."""
     kmers, _, _ = chop(codes, lengths, ksize)
-    # 2k + 1 bits: the sentinel's low bits order it after every k-mer
-    flat, _ = radix.sort(kmers.reshape(-1), 2 * ksize + 1)
+    flat = kmers.reshape(-1)
+    if sort:
+        # 2k + 1 bits: the sentinel's low bits order it after every k-mer
+        flat, _ = radix.sort(flat, 2 * ksize + 1)
     return flat, _n_valid(lengths, ksize, kmers.shape[1])
 
 

@@ -78,7 +78,7 @@ def run(lib_path: str, ksize: int = 17, low_freq_cutoff: int = 1,
     prefix = out_prefix or (lib_path + ".kmer.freq")
     counter = kc.KmerCounter(ksize, batch_reads=batch_reads, device=device)
     for path in read_file_list(lib_path):
-        batch = fastq.read_batch(path, fmt=fmt)
+        batch = fastq.read_batch(path, fmt=fmt, keep_heads=False)
         codes, lens = batch.codes, batch.lengths
         if qual_cutoff > 0 and batch.quals.any():
             codes, lens = split_reads_by_quality(

@@ -531,23 +531,27 @@ def hash_layout_disp(kmers_in_order: np.ndarray, size: int):
 
 
 def hash_layout_epochs(kmers_in_order: np.ndarray, sizes: list[int],
-                       ends: list[int]):
+                       ends: list[int], want_snapshots: bool = True):
     """Slot assignment with hash enlargement (kmerSet.cpp:132-189).
     sizes: hash size per epoch; ends[e]: node count at which enlargement e
     fires.  Returns (slots int64 [n], insert_conflicts, snapshots int64
-    [E+1, n]: each node's slot during epoch e, -1 before insertion)."""
+    [E+1, n]: each node's slot during epoch e, -1 before insertion).
+    want_snapshots=False, as in JAX's (dbg_assembly_tpu/native.py:471),
+    passes the native call a null pointer, allocates no [E+1, n] array and
+    returns None for the snapshots."""
     km = np.ascontiguousarray(kmers_in_order, dtype=np.uint64)
     n = len(km)
     n_enl = len(sizes) - 1
     sz = np.asarray(sizes, dtype=np.uint64)
     en = np.asarray(list(ends) + [0], dtype=np.int64)   # never empty
     out = np.empty(n, dtype=np.int64)
-    snaps = np.empty((n_enl + 1, n), dtype=np.int64)
+    snaps = np.empty((n_enl + 1, n), dtype=np.int64) if want_snapshots \
+        else None
     conflicts = lib().hash_layout_epochs(
         km.ctypes.data_as(_u64p), ctypes.c_int64(n),
         sz.ctypes.data_as(_u64p), en.ctypes.data_as(_i64p),
         ctypes.c_int64(n_enl), out.ctypes.data_as(_i64p),
-        snaps.ctypes.data_as(_i64p))
+        None if snaps is None else snaps.ctypes.data_as(_i64p))
     return out, int(conflicts), snaps
 
 

@@ -62,20 +62,35 @@ def _on_card(x: torch.Tensor, dtype: torch.dtype) -> bool:
     if x.dtype != dtype or x.dim() != 2:
         raise TypeError(f"expected a 2-D {dtype} tensor, got {x.dtype} "
                         f"{tuple(x.shape)}")
-    if x.device.type not in ("cuda", "cpu"):
+    on_card = x.is_cuda
+    if not (on_card or x.is_cpu):
         raise ValueError(f"probes run on cuda or cpu, not {x.device}")
     if not x.is_contiguous():
         raise ValueError("probe input must be contiguous")
     if x.numel() >= 2 ** 31:
         raise ValueError(f"{x.numel()} elements exceed the kernels' int")
-    return x.device.type == "cuda"
+    return on_card
 
 
 def _launch(name: str, x: torch.Tensor, outs: tuple, *ints: int) -> tuple:
+    """Launches probe `name` on the current stream of x's card.  At the
+    probes' sizes the card waits on this host path, so it takes the stream
+    handle in one call on x's device and enters a device context only
+    when x is not on the current device (a kernel launches only onto a
+    stream of the current device).  The handle comes from
+    torch._C._cuda_getCurrentRawStream: on the H100's host the public
+    torch.cuda.current_stream(dev).cuda_stream, which builds a Stream
+    object, took about a fifth of the wrapper's time (smoke phase 4's
+    launch-path split)."""
     fn = _entry(name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), *[o.data_ptr() for o in outs], *ints, stream)
+    dev = x.get_device()
+    args = (x.data_ptr(), *[o.data_ptr() for o in outs], *ints,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"probe {name} kernel launch failed: CUDA error "
                            f"{err}")

@@ -63,14 +63,20 @@ class Mesh:
                 f"{'s' if len(cards) > 1 else ''}")
 
 
-def data_mesh(n_devices: int, device="cuda") -> Mesh:
+def data_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     """A mesh of n_devices slots.  device "cuda": slot d on cuda:(d mod
     the card count), and no card raises (never a CPU fallback); "cpu":
-    every slot on the CPU; "cuda:i": every slot on that card."""
+    every slot on the CPU; "cuda:i": every slot on that card.
+    n_devices=None, as in JAX's data_mesh (dbg_assembly_tpu/parallel/
+    mesh.py:18), means every device: one slot a card on "cuda", and one
+    slot on "cpu" or "cuda:i", which name one device."""
+    dev = resolve_device(device)
+    whole = dev.type == "cuda" and dev.index is None
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if whole else 1
     if n_devices < 1:
         raise ValueError(f"a mesh needs n_devices >= 1, not {n_devices}")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
+    if whole:
         cards = torch.cuda.device_count()
         return Mesh([torch.device("cuda", d % cards)
                      for d in range(n_devices)])

@@ -64,7 +64,8 @@ def _batches(files: list[str], fmt: str, k: int, L: int, rows: int):
     pend_c = np.zeros((0, L), np.uint8)
     pend_l = np.zeros((0,), np.int32)
     for path in files:
-        batch = fastq.read_batch(path, fmt=fmt, strict_n=False)
+        batch = fastq.read_batch(path, fmt=fmt, strict_n=False,
+                                 keep_heads=False)
         codes = np.zeros((batch.n_reads, L), np.uint8)
         w = min(L, batch.codes.shape[1])
         codes[:, :w] = batch.codes[:, :w]

@@ -33,6 +33,7 @@ from dbg_assembly_tpu_torch.correct import pipeline as tpipe
 from dbg_assembly_tpu_torch.io import cz as tcz
 from dbg_assembly_tpu_torch.io import fastq as tfq
 from dbg_assembly_tpu_torch.kmer import count as tkc
+from dbg_assembly_tpu_torch.parallel import mesh as tmesh
 from test_correct_device import _make_case
 from torch_port_data import write_lib
 
@@ -416,8 +417,12 @@ def test_read_batch_heads_and_bytes(tmp_path, fasta):
             np.testing.assert_array_equal(getattr(j, name),
                                           getattr(t, name), err_msg=name)
         assert j.heads == t.heads and len(t.heads) == len(seqs)
-    t = tfq.read_batch(path)
-    assert t.heads == [] and t.seqs_ascii is None
+    # the defaults are JAX's: headers kept, no ASCII plane
+    j, t = jfq.read_batch(path), tfq.read_batch(path)
+    assert t.heads == j.heads and len(t.heads) == len(seqs)
+    assert t.seqs_ascii is None and j.seqs_ascii is None
+    t = tfq.read_batch(path, keep_heads=False)
+    assert t.heads == [] == jfq.read_batch(path, keep_heads=False).heads
 
 
 def _outputs(path):
@@ -449,6 +454,24 @@ def test_correct_file(tmp_path, fasta):
     tpipe.correct_file(path, bm, TPARAMS, fmt=fmt, device="cpu", chunk=16)
     assert _outputs(path) == want["jax"]
     assert tdev.counts["batches"] == -(-len(seqs) // 16)
+
+
+@pytest.mark.parametrize("fasta", [False, True])
+def test_correct_file_positional_args(tmp_path, fasta):
+    """correct_file(path, bitmap, params, fmt, engine, mesh) called
+    positionally in JAX's order: the mesh binds as the mesh (the port's
+    device, words and chunk come after it), and the files are JAX's."""
+    seqs, bm = _odd_reads()
+    path = str(tmp_path / ("r.fa" if fasta else "r.fq.gz"))
+    _write_reads(path, seqs, fasta=fasta, gz=not fasta)
+    fmt = 2 if fasta else 1
+    jpipe.correct_file(path, bm, PARAMS, fmt, "native", None)
+    want = _outputs(path)
+    tdev.reset_counts()
+    tpipe.correct_file(path, bm, TPARAMS, fmt, "torch",
+                       tmesh.data_mesh(2, "cpu"))
+    assert tdev.counts["batches"] > 0
+    assert _outputs(path) == want
 
 
 def _library(root, name):
@@ -496,6 +519,22 @@ def test_cli_correct_error_reads(tmp_path):
     tcli.main(argv + ["--mesh", "2", "--device", "cpu",
                       libs["torch"] + ".kmer.freq.cz", libs["torch"]])
     assert _files(libs["torch"], sufs) == want
+
+
+def test_run_positional_args(tmp_path):
+    """correct/pipeline.run(cz, lib, params, fmt, engine, mesh_devices)
+    called positionally in JAX's order, the port's device after it: the
+    JAX package's .correct.fa.gz and .correct.stat files."""
+    root = str(tmp_path)
+    libs = {n: _library(root, n) for n in ("jax", "torch")}
+    from dbg_assembly_tpu.kmer import kmerfreq as jkf
+    jkf.run(libs["jax"], ksize=K, low_freq_cutoff=1)
+    cz = libs["jax"] + ".kmer.freq.cz"
+    jpipe.run(cz, libs["jax"], PARAMS, 1, "native", 0)
+    tpipe.run(cz, libs["torch"], TPARAMS, 1, "torch", 2, "cpu")
+    sufs = [".correct.fa.gz", ".correct.stat"]
+    want, got = _files(libs["jax"], sufs), _files(libs["torch"], sufs)
+    assert len(want) == 4 and got == want
 
 
 def test_cli_correct_error_8bit(tmp_path):

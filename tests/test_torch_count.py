@@ -132,3 +132,28 @@ def test_split_reads_by_quality():
         a = jkf.split_reads_by_quality(codes, lengths, quals, 11, cut)
         b = tkf.split_reads_by_quality(codes, lengths, quals, 11, cut)
         assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("k", [17, 31])
+def test_chop_canonical_matches_jax(k, sort, monkeypatch):
+    """chop_canonical(..., sort) == JAX's: sorted with the sentinels last,
+    or (sort=False) row-major [N*P] with the sentinel at the invalid
+    windows; the same n_valid; sort=False calls no sort."""
+    codes, lengths = _reads(k + 5, k=k)
+    jflat, jn = jcount.chop_canonical(jnp.asarray(codes),
+                                      jnp.asarray(lengths), k, sort)
+    calls = []
+    real = tcount.radix.sort
+    monkeypatch.setattr(tcount.radix, "sort",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    tflat, tn = tcount.chop_canonical(torch.from_numpy(codes),
+                                      torch.from_numpy(lengths), k, sort)
+    assert len(calls) == int(sort)
+    jflat, tflat = np.asarray(jflat), tflat.numpy()
+    assert tflat.shape == jflat.shape == (codes.shape[0] *
+                                          (codes.shape[1] - k + 1),)
+    assert tn == int(jn) and 0 < tn < len(tflat)
+    assert np.array_equal(tflat == SENTINEL, jflat == jcount.SENTINEL)
+    keep = jflat != jcount.SENTINEL
+    assert np.array_equal(tflat[keep].view(np.uint64), jflat[keep])

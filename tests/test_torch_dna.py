@@ -69,3 +69,15 @@ def test_seq2bit_bit2seq(k):
     assert np.array_equal(packed, jdna.seq2bit(codes))
     for v in packed[:5]:
         assert tdna.bit2seq(v, k) == jdna.bit2seq(v, k)
+
+
+@pytest.mark.parametrize("k", [13, 31])
+def test_seq2bit_takes_ksize(k):
+    """seq2bit(codes, ksize), JAX's signature: ksize is accepted and
+    unused in both."""
+    codes = np.random.default_rng(k + 1).integers(0, 4, (7, 3, k)).astype(
+        np.uint8)
+    got = tdna.seq2bit(codes, k)
+    assert got.dtype == np.uint64 and got.shape == (7, 3)
+    assert np.array_equal(got, jdna.seq2bit(codes, k))
+    assert np.array_equal(got, tdna.seq2bit(codes, ksize=None))

@@ -620,6 +620,30 @@ def test_native_bindings_match_jax():
     j.close()
 
 
+@pytest.mark.parametrize("want_snapshots", [True, False])
+def test_hash_layout_epochs_matches_jax(want_snapshots):
+    """hash_layout_epochs over three epochs (two enlargements) == JAX's
+    binding: the same slots and conflicts, and the snapshots, or None for
+    both with want_snapshots=False."""
+    from dbg_assembly_tpu import native as jnat
+    from dbg_assembly_tpu_torch import native as tnat
+    keys = np.random.default_rng(9).integers(0, 1 << 40, 3000).astype(
+        np.uint64)
+    sizes, ends = [1009, 4001, 8009], [800, 2000]
+    got = tnat.hash_layout_epochs(keys, sizes, ends, want_snapshots)
+    want = jnat.hash_layout_epochs(keys, sizes, ends, want_snapshots)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] and got[1] > 0
+    if want_snapshots:
+        assert got[2].shape == (3, 3000)
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(got[2][-1], got[0])
+    else:
+        assert got[2] is None and want[2] is None
+        np.testing.assert_array_equal(
+            got[0], tnat.hash_layout_epochs(keys, sizes, ends)[0])
+
+
 def _ragged_batches(seed: int):
     """Three 'files' of ragged reads, some shorter than k, one empty."""
     rng = np.random.default_rng(seed)

@@ -293,3 +293,34 @@ def test_count_halo_sharded_matches_jax():
     np.testing.assert_array_equal(got_u[order], u)
     np.testing.assert_array_equal(torch.cat(tc).numpy()[order], c)
     assert ts["total_kmers"] == total
+
+
+def test_data_mesh_defaults(monkeypatch):
+    """data_mesh(n_devices=None), as JAX's: one slot on the CPU (a single
+    device); with no card, "cuda" raises whatever the count."""
+    m = tmesh.data_mesh(device="cpu")
+    assert m.n == 1 and m.devices == [torch.device("cpu")]
+    assert tmesh.data_mesh(None, "cpu").n == 1
+    assert tmesh.data_mesh(3, "cpu").n == 3
+    with pytest.raises(ValueError):
+        tmesh.data_mesh(0, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (tmesh.data_mesh, lambda: tmesh.data_mesh(None, "cuda:0"),
+                 lambda: tmesh.data_mesh(2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_graphbuilder_positional_args_match_jax():
+    """GraphBuilder(ksize, max_read_len, batch_reads, mesh) called
+    positionally in JAX's order: the mesh binds as the mesh (the port's
+    device comes after it), and the table is JAX's."""
+    k, N, L = 15, 300, 66
+    codes, lengths = _random_reads(8, N, L, k)
+    jm, tm = _meshes(2)
+    jb = jgraph.GraphBuilder(k, L, 70, jm)
+    tb = tgraph.GraphBuilder(k, L, 70, tm)
+    assert tb.mesh is tm and tb.batch_reads == 70
+    for gb in (jb, tb):
+        gb.add(codes, lengths)
+    _tables_equal(tb.finalize(), jb.finalize())

@@ -2,7 +2,7 @@
 neither JAX nor the JAX package, device="cuda" without a card raises
 instead of running on the CPU (whatever host twin a flag asks for), and
 every public function of the JAX package has a counterpart of the same
-name in the same module of the port."""
+name in the same module of the port, which takes its parameters."""
 
 import ast
 import os
@@ -190,6 +190,29 @@ NOT_PORTED = {
 }
 
 
+# Public signatures of the port that break the rule of
+# test_every_signature_matches on purpose, each with its reason.  Parameters
+# the port adds after all of JAX's, each with a default (device, engine,
+# chunk, unroll, merge_counted's ksize), keep the rule and are not listed.
+SIGNATURE_DIFFERS = {
+    # the port's mesh has one axis, so no axis name is taken
+    "contig.mesh_assemble.MeshGraph": "one mesh axis",
+    "correct.sharded.shard_bitmap": "one mesh axis",
+    "scaffold.sharded.map_reads_sharded": "one mesh axis",
+    # the table on the device is a list of int32-word tensors, one a slot
+    # (shards), not a sharded jax.Array (bm_shard); and one mesh axis
+    "correct.sharded.correct_batch_sharded": "shards; one mesh axis",
+    "correct.sharded.stage_a_sharded": "shards; one mesh axis",
+    # JAX's runs inside shard_map on one slot's shard; the port's takes the
+    # mesh and every slot's shard and moves the probes between slots
+    "correct.sharded.probe_collective": "(mesh, shards, idx)",
+    # the table as int32 words on the device (words), not a jax.Array
+    "correct.device.correct_batch_device": "words for bitmap_dev",
+    # out=None writes to sys.stdout as it is at the call, not at import
+    "utils.simulate_lowfreq.run": "out=None",
+}
+
+
 def _names(pkg: str, bindings: bool) -> set:
     """'module.name' of every public function, class and method
     ('module.Class.method') of the package's .py files; with bindings,
@@ -241,3 +264,99 @@ def test_every_function_ported():
                    n.startswith(key + ".")}
         assert covered and not covered & port_names, key
     assert len(jax_names) > 200
+
+
+def _params(args: ast.arguments) -> tuple:
+    """(positional, *args, keyword-only, **kwargs) of a def: each parameter
+    as (name, kind, default's source or None)."""
+    pos = args.posonlyargs + args.args
+    defaults = [None] * (len(pos) - len(args.defaults)) + args.defaults
+    kinds = ["positional-only"] * len(args.posonlyargs) \
+        + ["positional"] * len(args.args)
+    return ([(a.arg, k, _source(d)) for a, k, d in zip(pos, kinds,
+                                                        defaults)],
+            args.vararg and args.vararg.arg,
+            {a.arg: _source(d) for a, d in zip(args.kwonlyargs,
+                                               args.kw_defaults)},
+            args.kwarg and args.kwarg.arg)
+
+
+def _source(node) -> str | None:
+    return None if node is None else ast.unparse(node)
+
+
+def _signatures(pkg: str) -> dict:
+    """'module.name' -> _params of every public function and method, and of
+    every public class (its __init__ without self, or a dataclass's public
+    fields as keyword-or-positional parameters)."""
+    root = os.path.join(ROOT, pkg)
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            mod = os.path.relpath(path, root)[:-3].replace(os.sep, ".")
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in tree.body:
+                if not isinstance(node, (ast.FunctionDef, ast.ClassDef,
+                                         ast.AsyncFunctionDef)) \
+                        or node.name.startswith("_"):
+                    continue
+                if not isinstance(node, ast.ClassDef):
+                    out[f"{mod}.{node.name}"] = _params(node.args)
+                    continue
+                for b in node.body:
+                    if not isinstance(b, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef)):
+                        continue
+                    if b.name == "__init__":
+                        pos, *rest = _params(b.args)
+                        out[f"{mod}.{node.name}"] = (pos[1:], *rest)
+                    elif not b.name.startswith("_"):
+                        out[f"{mod}.{node.name}.{b.name}"] = _params(b.args)
+                if f"{mod}.{node.name}" not in out and any(
+                        "dataclass" in ast.unparse(d)
+                        for d in node.decorator_list):
+                    out[f"{mod}.{node.name}"] = ([
+                        (b.target.id, "positional", _source(b.value))
+                        for b in node.body if isinstance(b, ast.AnnAssign)
+                        and not b.target.id.startswith("_")], None, {}, None)
+    return out
+
+
+def _signature_fault(jax_sig: tuple, port_sig: tuple) -> str | None:
+    """Why the port's signature breaks the rule (every JAX parameter with
+    the same name, position, kind and default; added ones after JAX's,
+    each with a default), or None."""
+    (jpos, jvar, jkw, jkwarg), (ppos, pvar, pkw, pkwarg) = jax_sig, port_sig
+    if ppos[:len(jpos)] != jpos:
+        return f"positional {jpos} -> {ppos}"
+    if (jvar, jkwarg) != (pvar, pkwarg):
+        return f"*{jvar}, **{jkwarg} -> *{pvar}, **{pkwarg}"
+    if any(n not in pkw or pkw[n] != d for n, d in jkw.items()):
+        return f"keyword-only {jkw} -> {pkw}"
+    added = [d for _, _, d in ppos[len(jpos):]] \
+        + [d for n, d in pkw.items() if n not in jkw]
+    if None in added:
+        return f"an added parameter without a default: {ppos} {pkw}"
+    return None
+
+
+def test_every_signature_matches():
+    """Every function, method and class that test_every_function_ported
+    pairs takes JAX's parameters: the same names, positions, kinds and
+    defaults, with the port's own parameters after them, each with a
+    default; but for the commented SIGNATURE_DIFFERS list, whose every
+    entry must still name a real difference."""
+    jax_sigs = _signatures("dbg_assembly_tpu")
+    port_sigs = _signatures("dbg_assembly_tpu_torch")
+    pairs = sorted(set(jax_sigs) & set(port_sigs))
+    assert len(pairs) > 200
+    faults = {n: _signature_fault(jax_sigs[n], port_sigs[n]) for n in pairs}
+    bad = {n: f for n, f in faults.items()
+           if f is not None and n not in SIGNATURE_DIFFERS}
+    assert not bad, bad
+    for key in SIGNATURE_DIFFERS:
+        assert faults.get(key) is not None, key

@@ -172,3 +172,45 @@ def test_kernel_matches_plain_on_card(name):
     for g, w, e in zip(got, want, p.expect(p.make_input())):
         assert g.dtype == w.dtype and torch.equal(g, w)
         assert np.array_equal(probes.to_numpy(g, e), e)
+
+
+REDESIGNED = ["copy_f32", "grid_block"]
+
+
+@pytest.mark.parametrize("name", REDESIGNED)
+def test_plain_at_large_shape_matches_numpy(name):
+    """The plain versions of the two redesigned probes at the shape where
+    chip_smoke.py times them against their bytes bound (2^26 float32)
+    equal the JAX triage's numpy expectation."""
+    from chip_smoke import PROBE_LARGE_SHAPES
+    p = probes.PROBES[name]
+    x = np.random.default_rng(6).standard_normal(PROBE_LARGE_SHAPES[name],
+                                                 dtype=np.float32)
+    (got,) = p.plain(probes.to_torch(x))
+    (want,) = p.expect(x)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", REDESIGNED)
+def test_redesigned_kernel_matches_plain_on_card(name):
+    """copy_f32 and grid_block on the card == their plain versions at the
+    probe's shape, chip_smoke.py's edge shapes (their scalar paths) and
+    large shape, each contiguous and 4 bytes past 16-byte alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the probe kernels have no CPU mode")
+    from chip_smoke import PROBE_EDGE_SHAPES, PROBE_LARGE_SHAPES
+    p = probes.PROBES[name]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for shape in (p.make_input().shape, *PROBE_EDGE_SHAPES[name],
+                  PROBE_LARGE_SHAPES[name]):
+        n = shape[0] * shape[1]
+        buf = torch.randn(n + 1, device="cuda", generator=g)
+        for x in (buf[:n].view(shape), buf[1:].view(shape)):
+            before = probes.launches[name]
+            (got,) = p.kernel(x)
+            torch.cuda.synchronize()
+            assert probes.launches[name] == before + 1
+            assert torch.equal(got, p.plain(x)[0]), (shape,
+                                                     x.storage_offset())
