@@ -19,12 +19,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
   4. probes vs plain on the card: each probe kernel against its plain
      version on the probe's own input, exact, then, after a warm-up, timed
      with CUDA events in turns plain / kernel / kernel / plain / library
-     (the one PyTorch call that computes it, where there is one), 1000
-     calls a run, and by the profiler's kernel time and the host time a
-     call; the launch path's host steps one by one; the redesigned
-     copy_f32 and grid_block also exact at shapes that take their scalar
-     paths and, with the library call, at a shape where bytes decide
-     (256 MiB in, 256 MiB out), timed there against their bytes bound;
+     (the one PyTorch call that computes it, where there is one; for
+     two_out_u32 the pair torch.add, torch.mul), 1000 calls a run, and by
+     the profiler's kernel time and the host time a call; the launch
+     path's host steps one by one for copy_f32, copy_u32 and two_out_u32;
+     the four redesigned probes (copy_f32, grid_block, copy_u32,
+     two_out_u32) also exact, every output, at shapes that take their
+     scalar paths and, with the library call or pair, at a shape where
+     bytes decide (256 MiB in, 256 MiB out a result), the integer ones on
+     int32 bits over the whole range with the values at which their
+     arithmetic wraps; timed there against their bytes bound;
   5. kernel vs plain on the card: chop against chop_plain on the same CUDA
      tensors, both modes, exact equality, at the shapes its tiling makes
      hard (k 1/16/17/31; one row; N not a multiple of a tile's rows; L 150,
@@ -43,9 +47,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      keys equal, keys with the sentinel, key_bits 34/35/62/63, n at the
      kernel's tile boundaries, and the main path's shapes, timed with CUDA
      events in turns plain/kernel/kernel/plain beside torch.sort(keys,
-     stable=True): kmerfreq's batch (200 000 x 134 windows at k = 17, keys
-     only), ingest's batch (100 000 x 120 at k = 31, with index) and an
-     8-part merge of the library's first 8 ingest batches (with index);
+     stable=True), and the host time a call: kmerfreq's batch
+     (200 000 x 134 windows at k = 17, keys only), ingest's batch
+     (100 000 x 120 at k = 31, with index) and an 8-part merge of the
+     library's first 8 ingest batches (with index);
   8. the three stage runs through cli.main: ``kmerfreq -k 17 -m 1``,
      ``debruijn_contig -k 31 -i 0.02 -M 125`` and the same with
      ``--readout doubling``; each kernel's launch count is set to 0 just
@@ -252,6 +257,9 @@ _PROBE_LIBRARY = {
     "copy_u32": lambda x: torch.add(x, 7),      # wrapping add on the bits
     "grid_block": lambda x: torch.add(x, 1.0),
 }
+# two_out_u32 has no single call: the pair of calls that computes both of
+# its outputs is timed beside it (pair_ms), not in the library column
+_PROBE_PAIR = {"two_out_u32": lambda x: (torch.add(x, 1), torch.mul(x, 3))}
 
 
 def _probe_ops(name: str, x: torch.Tensor) -> int:
@@ -270,63 +278,98 @@ def _probe_ops(name: str, x: torch.Tensor) -> int:
 
 
 # the redesigned probes at a shape where bytes decide (256 MiB in, 256 MiB
-# out), and inputs that take their scalar paths: a length not a multiple of
-# 4, columns not a multiple of 4, a pointer 4 bytes past 16-byte alignment
-PROBE_LARGE_SHAPES = {"copy_f32": (524_288, 128), "grid_block": (262_144, 256)}
-PROBE_EDGE_SHAPES = {"copy_f32": ((3, 5), (1, 1), (8, 128), (1000, 1001)),
+# out a result), and inputs that take their scalar paths: a length not a
+# multiple of 4, columns not a multiple of 4, a pointer 4 bytes past
+# 16-byte alignment
+PROBE_LARGE_SHAPES = {"copy_f32": (524_288, 128), "grid_block": (262_144, 256),
+                      "copy_u32": (524_288, 128),
+                      "two_out_u32": (524_288, 128)}
+_EDGES_1D = ((3, 5), (1, 1), (8, 128), (1000, 1001))
+PROBE_EDGE_SHAPES = {"copy_f32": _EDGES_1D,
                      "grid_block": ((16, 130), (8, 1), (64, 256),
-                                    (8, 1024))}
+                                    (8, 1024)),
+                     "copy_u32": _EDGES_1D, "two_out_u32": _EDGES_1D}
+# uint32 inputs at which the integer probes' arithmetic wraps at 2^32:
+# x + 7 from 0xFFFFFFF9, x + 1 at 0xFFFFFFFF, x * 3 from 0x55555556
+PROBE_WRAP_VALUES = (*range(0xFFFFFFF9, 0x1_0000_0000), 0x55555555,
+                     0x55555556, 0x80000000, 0xAAAAAAAA, 0xAAAAAAAB)
 PROBE_ITERS = 1000     # calls a timed run: steady at a few µs a call
-LARGE_ITERS = 200      # at the large shapes, 36 ms a run
+LARGE_ITERS = 200      # at the large shapes, 36-54 ms a run
 
 
-def _steady_turns(fns: dict, iters: int = PROBE_ITERS) -> dict:
-    """CUDA-event ms a call of each of fns' plain, kernel and library
-    (None to skip), each warmed up by ``iters`` calls, then timed in turns
-    plain / kernel / kernel / plain / library, ``iters`` calls a run;
-    returns name -> the runs' means."""
+def _probe_draw(dtype: torch.dtype, n: int, g: torch.Generator):
+    """n inputs on the card from generator g: float32 normals, or int32
+    bits over the whole uint32 range with PROBE_WRAP_VALUES at both ends
+    (as many as fit)."""
+    if dtype == torch.float32:
+        return torch.randn(n, device="cuda", generator=g)
+    x = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                      device="cuda", generator=g)
+    wrap = torch.tensor(PROBE_WRAP_VALUES, dtype=torch.int64)
+    wrap = ((wrap ^ 0x80000000) - 0x80000000).to(torch.int32)[:n]
+    x[:len(wrap)] = wrap.cuda()
+    x[n - len(wrap):] = wrap.cuda()
+    return x
+
+
+def _steady_turns(fns: dict, iters: int = PROBE_ITERS,
+                  order=("plain", "kernel", "kernel", "plain",
+                         "library")) -> dict:
+    """CUDA-event ms a call of each of fns' entries (None to skip), each
+    warmed up by ``iters`` calls, then timed in turns of ``order``,
+    ``iters`` calls a run; returns name -> the runs' means."""
     for fn in fns.values():
         if fn is not None:
             for _ in range(iters):
                 fn()
     torch.cuda.synchronize()
     runs = {}
-    for name in ("plain", "kernel", "kernel", "plain", "library"):
+    for name in order:
         if fns.get(name) is not None:
             runs.setdefault(name, []).append(_cuda_ms(fns[name], iters))
     return runs
 
 
-def _host_split(probes, x: torch.Tensor) -> dict:
-    """Host µs a call of each step of the probes' launch path on the
-    copy_f32 probe's input (iters calls each, the card idle at the start
-    of each), beside the whole wrapper and torch.mul."""
-    fn = probes._entry("copy_f32")
-    out = torch.empty_like(x)
+def _host_split(probes, name: str, x: torch.Tensor) -> dict:
+    """Host µs a call of each step of probe ``name``'s launch path on its
+    input (iters calls each, the card idle at the start of each), beside
+    the whole wrapper and the PyTorch calls that compute the same."""
+    fn = probes._entry(name)
+    outs = [torch.empty_like(x) for _ in range(1 + (name == "two_out_u32"))]
     dev = x.get_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    steps = {
-        "wrapper": lambda: probes.copy_f32(x),
-        "checks": lambda: probes._on_card(x, torch.float32),
-        "empty_like": lambda: torch.empty_like(x),
-        "current_device": torch.cuda.current_device,
-        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
-        "data_ptr x2": lambda: (x.data_ptr(), out.data_ptr()),
-        "ctypes launch": lambda: fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                                    stream),
-        "torch.mul": lambda: torch.mul(x, 2.0)}
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    steps = {"wrapper": lambda: probes.PROBES[name].kernel(x),
+             "checks": lambda: probes._on_card(x, x.dtype),
+             "empty_like": lambda: torch.empty_like(x)}
+    if len(outs) == 2:
+        steps["empty_like x2"] = lambda: (torch.empty_like(x),
+                                          torch.empty_like(x))
+    steps["current_device"] = torch.cuda.current_device
+    steps["raw stream"] = lambda: torch._C._cuda_getCurrentRawStream(dev)
+    steps[f"data_ptr x{1 + len(outs)}"] = lambda: (
+        x.data_ptr(), *[o.data_ptr() for o in outs])
+    steps["ctypes launch"] = lambda: fn(
+        x.data_ptr(), *[o.data_ptr() for o in outs], x.numel(), stream)
+    if name in _PROBE_LIBRARY:
+        steps["torch.mul" if name == "copy_f32" else "torch.add"] = (
+            lambda: _PROBE_LIBRARY[name](x))
+    if name in _PROBE_PAIR:
+        steps["torch.add"] = lambda: torch.add(x, 1)
+        steps["torch.mul"] = lambda: torch.mul(x, 3)
+        steps["add + mul pair"] = lambda: _PROBE_PAIR[name](x)
     return {k: _host_ms(f, PROBE_ITERS) * 1e3 for k, f in steps.items()}
 
 
 def _probe_edges(probes, name: str) -> None:
-    """The kernel == its plain version at PROBE_EDGE_SHAPES, contiguous
-    and 4 bytes past alignment (the scalar paths)."""
+    """The kernel == its plain version, every output exactly, at
+    PROBE_EDGE_SHAPES, contiguous and 4 bytes past alignment (the scalar
+    paths)."""
     p = probes.PROBES[name]
+    dtype = probes.to_torch(p.make_input()).dtype
     g = torch.Generator(device="cuda").manual_seed(3)
     for shape in PROBE_EDGE_SHAPES[name]:
         n = shape[0] * shape[1]
-        buf = torch.randn(n + 1, device="cuda", generator=g)
+        buf = _probe_draw(dtype, n + 1, g)
         for x in (buf[:n].view(shape), buf[1:].view(shape)):
             got = p.kernel(x)
             torch.cuda.synchronize()
@@ -337,45 +380,61 @@ def _probe_edges(probes, name: str) -> None:
                                      f", max abs err {err}")
 
 
-def _probe_large(probes, name: str, lib) -> dict:
+def _probe_large(probes, name: str) -> dict:
     """The kernel at PROBE_LARGE_SHAPES[name] == its plain version and
-    torch's call, exactly; timed in turns beside both."""
+    torch's call (or pair of calls), every output exactly; timed in turns
+    beside both."""
     p = probes.PROBES[name]
     shape = PROBE_LARGE_SHAPES[name]
+    dtype = probes.to_torch(p.make_input()).dtype
     g = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn(shape, device="cuda", generator=g)
-    got = p.kernel(x)
-    torch.cuda.synchronize()
+    x = _probe_draw(dtype, shape[0] * shape[1], g).view(shape)
+    lib = _PROBE_LIBRARY.get(name)
+    pair = _PROBE_PAIR.get(name)
     want = p.plain(x)
-    err = _max_abs_err(got, want)
-    if err != 0 or not torch.equal(lib(x), want[0]):
-        raise AssertionError(f"probe {name} {shape}: kernel or library != "
-                             f"plain (kernel max abs err {err})")
+    fns = {"plain": lambda: p.plain(x), "kernel": lambda: p.kernel(x),
+           "library": lib and (lambda: lib(x)),
+           "pair": pair and (lambda: pair(x))}
+    err = 0
+    for what in ("kernel", "library", "pair"):
+        if fns[what] is not None:
+            got = fns[what]()
+            torch.cuda.synchronize()
+            e = _max_abs_err(got if isinstance(got, tuple) else (got,),
+                             want)
+            if e != 0:
+                raise AssertionError(f"probe {name} {shape}: {what} != "
+                                     f"plain, max abs err {e}")
+            err = max(err, e)
     del got, want
-    runs = _steady_turns({"plain": lambda: p.plain(x),
-                          "kernel": lambda: p.kernel(x),
-                          "library": lambda: lib(x)}, LARGE_ITERS)
-    bound_ms, bound_by = _bound(2 * x.nbytes, x.numel())
+    runs = _steady_turns(fns, LARGE_ITERS,
+                         ("plain", "kernel", "kernel", "plain", "library",
+                          "pair"))
+    n_out = 2 if pair else 1
+    bound_ms, bound_by = _bound((1 + n_out) * x.nbytes, n_out * x.numel())
     ms = sum(runs["kernel"]) / 2
     rec = {"shape_large": list(shape), "max_abs_err_large": err,
            "ms_large": ms, "ms_large_runs": runs["kernel"],
            "plain_ms_large": sum(runs["plain"]) / 2,
-           "library_ms_large": runs["library"][0],
+           "library_ms_large": runs["library"][0] if lib else None,
            "bound_ms_large": bound_ms, "bound_by_large": bound_by,
            "share_large": bound_ms / ms}
+    if pair:
+        rec["pair_ms_large"] = runs["pair"][0]
     _log(f"probe {name} {shape}: kernel {runs['kernel'][0]:.4f} / "
          f"{runs['kernel'][1]:.4f} ms, plain {runs['plain'][0]:.4f} / "
-         f"{runs['plain'][1]:.4f} ms, library {runs['library'][0]:.4f} ms;"
-         f" bound {bound_ms:.4f} ms ({bound_by}), share "
-         f"{rec['share_large']:.3f}")
+         f"{runs['plain'][1]:.4f} ms, library {rec['library_ms_large']}, "
+         f"pair {rec.get('pair_ms_large')}; bound {bound_ms:.4f} ms "
+         f"({bound_by}), share {rec['share_large']:.3f}")
     return rec
 
 
 def phase_probes(probes) -> dict:
     """Each probe kernel against its plain version on its own input, then
     timed in turns beside it and, where one PyTorch call computes it, that
-    call: the CUDA-event ms a call, the profiler's kernel time and the host
-    time a call; the redesigned two also at their edge and large shapes."""
+    call (two_out_u32: the pair of calls): the CUDA-event ms a call, the
+    profiler's kernel time and the host time a call, and the launch path's
+    host steps; the redesigned four also at their edge and large shapes."""
     inputs = {name: probes.to_torch(p.make_input()).cuda()
               for name, p in probes.PROBES.items()}
     device_ms = _profiled_each(
@@ -392,11 +451,15 @@ def phase_probes(probes) -> dict:
             raise AssertionError(f"probe {name} kernel differs from its plain"
                                  f" version on the card: max abs err {err}")
         lib = _PROBE_LIBRARY.get(name)
+        pair = _PROBE_PAIR.get(name)
         if lib is not None and not torch.equal(lib(x), want[0]):
             raise AssertionError(f"probe {name}: library call != plain")
+        if pair is not None and _max_abs_err(pair(x), want) != 0:
+            raise AssertionError(f"probe {name}: pair of calls != plain")
+        other = lib or pair
         runs = _steady_turns({"plain": lambda: p.plain(x),
                               "kernel": lambda: p.kernel(x),
-                              "library": lib and (lambda: lib(x))})
+                              "library": other and (lambda: other(x))})
         nbytes = x.nbytes + sum(w.nbytes for w in want)
         bound_ms, bound_by = _bound(nbytes, _probe_ops(name, x))
         rec = {"max_abs_err": err, "ms": sum(runs["kernel"]) / 2,
@@ -408,25 +471,30 @@ def phase_probes(probes) -> dict:
                "host_ms": _host_ms(lambda: p.kernel(x), PROBE_ITERS),
                "library_host_ms": (_host_ms(lambda: lib(x), PROBE_ITERS)
                                    if lib else None)}
+        if pair:
+            rec["pair_ms"] = runs["library"][0]
+            rec["pair_host_ms"] = _host_ms(lambda: pair(x), PROBE_ITERS)
         _log(f"probe {name} {tuple(x.shape)} ({PROBE_ITERS} calls a run): "
              f"kernel {runs['kernel'][0]:.4f} / {runs['kernel'][1]:.4f} ms, "
              f"plain {runs['plain'][0]:.4f} / {runs['plain'][1]:.4f} ms, "
-             f"library {rec['library_ms']}; profiler kernel "
-             f"{rec['device_ms']} ms; host {rec['host_ms']:.4f} ms a call "
-             f"(library {rec['library_host_ms']})")
+             f"library {rec['library_ms']}, pair {rec.get('pair_ms')}; "
+             f"profiler kernel {rec['device_ms']} ms; host "
+             f"{rec['host_ms']:.4f} ms a call (library "
+             f"{rec['library_host_ms']}, pair {rec.get('pair_host_ms')})")
         if name in PROBE_LARGE_SHAPES:
             _probe_edges(probes, name)
-            rec.update(_probe_large(probes, name, lib))
-        if name == "copy_f32":
-            rec["host_split_us"] = _host_split(probes, x)
-            _log("probe launch path, host µs a call: " + ", ".join(
+            rec.update(_probe_large(probes, name))
+        if name in ("copy_f32", "copy_u32", "two_out_u32"):
+            rec["host_split_us"] = _host_split(probes, name, x)
+            _log(f"probe {name} launch path, host µs a call: " + ", ".join(
                 f"{k} {v:.2f}" for k, v in rec["host_split_us"].items()))
         out[name] = rec
     torch.cuda.empty_cache()
     _log("probe kernels == plain versions on the card: "
-         + ", ".join(out) + "; copy_f32 and grid_block also at "
-         + ", ".join(f"{n} {s}" for n, s in PROBE_EDGE_SHAPES.items())
-         + " (contiguous and 4 bytes past alignment) and their large shapes")
+         + ", ".join(out) + "; " + ", ".join(PROBE_EDGE_SHAPES)
+         + " also at their edge shapes (contiguous and 4 bytes past "
+         "alignment) and their large shapes, integer ones with the values "
+         "that wrap")
     return out
 
 
@@ -744,13 +812,16 @@ def _sort_shape(srt, rec: dict, name: str, keys: torch.Tensor, bits: int,
     ms, plain_ms = _turns(what, lambda: srt.sort(keys, bits, index),
                           lambda: srt.sort_plain(keys, bits, index))
     library_ms = _cuda_ms(lambda: torch.sort(keys, stable=True))
-    _log(f"{what}: torch.sort(keys, stable=True) {library_ms:.4f} ms")
+    host_ms = _host_ms(lambda: srt.sort(keys, bits, index))
+    _log(f"{what}: torch.sort(keys, stable=True) {library_ms:.4f} ms; host "
+         f"{host_ms:.4f} ms a call")
     # bytes: the keys read once and written once, the index written
     bound_ms, bound_by = _bound(keys.shape[0] * (16 + 8 * index))
     suf = "" if name == "count" else "_" + name
     rec.update({"ms" + suf: ms, "plain_ms" + suf: plain_ms,
                 "bound_ms" + suf: bound_ms, "bound_by" + suf: bound_by,
-                "library_ms" + suf: library_ms, "n" + suf: keys.shape[0]})
+                "library_ms" + suf: library_ms, "n" + suf: keys.shape[0],
+                "host_ms" + suf: host_ms})
 
 
 def _fasta_lengths(path: str) -> np.ndarray:

@@ -4,8 +4,9 @@ Each source compiles with nvcc into its own shared library with a plain C
 interface, under dbg_assembly_tpu_torch/_build/, at first use; a library is
 rebuilt when its source is newer; ptxas's report of each kernel's registers,
 shared memory and spills is kept beside it (``resources``).  Callers bind it
-with ctypes: pointers from ``Tensor.data_ptr()`` and the stream from
-``torch.cuda.current_stream().cuda_stream``, both as ``c_void_p``.
+with ctypes: pointers from ``Tensor.data_ptr()`` and the stream as the raw
+handle of the card's current stream, both as ``c_void_p``; ``launch`` makes
+the call.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
@@ -98,3 +101,20 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(build(name))
         return _loaded[name]
+
+
+def launch(fn, dev: int, *args) -> int:
+    """fn(*args, stream), a C launch function of a library, on the current
+    stream of card ``dev``; returns what fn returns (its CUDA error).
+
+    The handle comes from torch._C._cuda_getCurrentRawStream: on the H100's
+    host the public torch.cuda.current_stream(dev).cuda_stream, which
+    builds a Stream object, took 2.02-4.77 us a call against 0.11 us
+    (PERF.md section 6), and a small kernel waits on this host path.  A
+    kernel launches onto the current device, so a device context is
+    entered only when ``dev`` is not it (a mesh slot on another card)."""
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)

@@ -22,6 +22,8 @@ import functools
 
 import torch
 
+from . import build
+
 SENTINEL = torch.iinfo(torch.int64).max
 MAX_K = 31
 # shared memory a block of the kernel takes at most (the default limit,
@@ -73,7 +75,6 @@ def tile_plan(L: int, ksize: int) -> tuple[int, int]:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built on first use, its C signatures set once."""
-    from . import build
     lib = build.load("chop")
     lib.chop_launch.restype = ctypes.c_int
     lib.chop_launch.argtypes = [
@@ -121,12 +122,11 @@ def chop(codes: torch.Tensor, lengths: torch.Tensor, ksize: int,
     if N == 0 or P == 0:
         return kmers, left, right
     rows, pw = tile_plan(L, ksize)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().chop_launch(
-            codes.data_ptr(), lengths.data_ptr(), N, L, ksize, rows, pw,
-            kmers.data_ptr(), left.data_ptr() if edges else None,
-            right.data_ptr() if edges else None, int(edges), stream)
+    err = build.launch(
+        _lib().chop_launch, codes.get_device(), codes.data_ptr(),
+        lengths.data_ptr(), N, L, ksize, rows, pw, kmers.data_ptr(),
+        left.data_ptr() if edges else None,
+        right.data_ptr() if edges else None, int(edges))
     if err != 0:
         raise RuntimeError(f"chop kernel launch failed: CUDA error {err}")
     launches += 1

@@ -23,6 +23,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import build
+
 _M32 = 0xFFFFFFFF
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -50,7 +52,6 @@ def to_numpy(t: torch.Tensor, like: np.ndarray) -> np.ndarray:
 
 @functools.cache
 def _entry(name: str):
-    from . import build
     fn = getattr(build.load("probe_" + name), f"probe_{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [_P, *_SIGS[name], _P]
@@ -73,24 +74,10 @@ def _on_card(x: torch.Tensor, dtype: torch.dtype) -> bool:
 
 
 def _launch(name: str, x: torch.Tensor, outs: tuple, *ints: int) -> tuple:
-    """Launches probe `name` on the current stream of x's card.  At the
-    probes' sizes the card waits on this host path, so it takes the stream
-    handle in one call on x's device and enters a device context only
-    when x is not on the current device (a kernel launches only onto a
-    stream of the current device).  The handle comes from
-    torch._C._cuda_getCurrentRawStream: on the H100's host the public
-    torch.cuda.current_stream(dev).cuda_stream, which builds a Stream
-    object, took about a fifth of the wrapper's time (smoke phase 4's
-    launch-path split)."""
-    fn = _entry(name)
-    dev = x.get_device()
-    args = (x.data_ptr(), *[o.data_ptr() for o in outs], *ints,
-            torch._C._cuda_getCurrentRawStream(dev))
-    if dev == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
+    """Launches probe `name` on the current stream of x's card
+    (build.launch); raises if the launch fails."""
+    err = build.launch(_entry(name), x.get_device(), x.data_ptr(),
+                       *[o.data_ptr() for o in outs], *ints)
     if err != 0:
         raise RuntimeError(f"probe {name} kernel launch failed: CUDA error "
                            f"{err}")

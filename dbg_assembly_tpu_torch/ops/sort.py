@@ -28,6 +28,8 @@ import functools
 
 import torch
 
+from . import build
+
 DIGIT_BITS = 8
 
 # kernel launches since import (or since the caller last reset it)
@@ -47,7 +49,6 @@ def _check(keys: torch.Tensor, key_bits: int) -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built on first use, its C signatures set once."""
-    from . import build
     lib = build.load("radix_sort")
     lib.radix_sort_tile.restype = ctypes.c_int
     lib.radix_sort_tile.argtypes = []
@@ -92,13 +93,11 @@ def sort(keys: torch.Tensor, key_bits: int, return_index: bool = False):
              for _ in range(2)] if return_index else [None, None])
     scratch = torch.empty(lib.radix_sort_scratch_bytes(n), dtype=torch.uint8,
                           device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.radix_sort_launch(
-            keys.data_ptr(), n, key_bits, kbuf[0].data_ptr(),
-            kbuf[1].data_ptr(), ibuf[0].data_ptr() if return_index else None,
-            ibuf[1].data_ptr() if return_index else None, scratch.data_ptr(),
-            stream)
+    err = build.launch(
+        lib.radix_sort_launch, keys.get_device(), keys.data_ptr(), n,
+        key_bits, kbuf[0].data_ptr(), kbuf[1].data_ptr(),
+        ibuf[0].data_ptr() if return_index else None,
+        ibuf[1].data_ptr() if return_index else None, scratch.data_ptr())
     if err != 0:
         raise RuntimeError(f"radix sort kernel launch failed: CUDA error "
                            f"{err}")

@@ -174,14 +174,17 @@ def test_kernel_matches_plain_on_card(name):
         assert np.array_equal(probes.to_numpy(g, e), e)
 
 
-REDESIGNED = ["copy_f32", "grid_block"]
+REDESIGNED_F32 = ["copy_f32", "grid_block"]
+REDESIGNED_U32 = ["copy_u32", "two_out_u32"]
+REDESIGNED = REDESIGNED_F32 + REDESIGNED_U32
 
 
-@pytest.mark.parametrize("name", REDESIGNED)
+@pytest.mark.parametrize("name", REDESIGNED_F32)
 def test_plain_at_large_shape_matches_numpy(name):
-    """The plain versions of the two redesigned probes at the shape where
-    chip_smoke.py times them against their bytes bound (2^26 float32)
-    equal the JAX triage's numpy expectation."""
+    """The plain versions of the float32 redesigned probes at the shape
+    where chip_smoke.py times them against their bytes bound (2^26
+    float32) equal the probe's ``expect``, the port's copy of the numpy
+    formula of tools/mosaic_triage.py."""
     from chip_smoke import PROBE_LARGE_SHAPES
     p = probes.PROBES[name]
     x = np.random.default_rng(6).standard_normal(PROBE_LARGE_SHAPES[name],
@@ -192,25 +195,119 @@ def test_plain_at_large_shape_matches_numpy(name):
     assert np.array_equal(got.numpy(), want)
 
 
+def _u32_with_wraps(seed, shape):
+    """Seeded uint32 over the whole range, with chip_smoke.py's
+    PROBE_WRAP_VALUES (where + 7, + 1 and * 3 wrap at 2^32), as many as
+    fit, at the start of the first row and the end of the last."""
+    from chip_smoke import PROBE_WRAP_VALUES
+    x = np.random.default_rng(seed).integers(0, 2 ** 32, size=shape,
+                                             dtype=np.uint32)
+    wrap = np.array(PROBE_WRAP_VALUES[:shape[1]], np.uint32)
+    x[0, :len(wrap)] = wrap
+    x[-1, -len(wrap):] = wrap
+    return x
+
+
+@pytest.mark.parametrize("name", REDESIGNED_U32)
+def test_u32_plain_with_wrap_values_matches_numpy(name):
+    """The plain versions of the uint32 redesigned probes equal the probe's
+    ``expect``, the port's copy of the numpy formula of
+    tools/mosaic_triage.py (numpy's uint32 arithmetic wraps), on a
+    mid-sized seeded input that holds the values that wrap; that formula
+    is held against JAX's output at the probe's own input by
+    test_plain_matches_jax_probe.  2^26 would take gigabytes of int64
+    intermediates a test worker."""
+    p = probes.PROBES[name]
+    x = _u32_with_wraps(7, (4096, 256))
+    got = p.plain(probes.to_torch(x))
+    want = p.expect(x)
+    assert len(got) == len(want) == (2 if name == "two_out_u32" else 1)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == x.shape
+        assert g.is_contiguous()
+        assert w.dtype == np.uint32
+        assert np.array_equal(probes.to_numpy(g, w), w)
+    # the input holds a value at which each result wraps
+    assert x[0, 0] == 0xFFFFFFF9
+    assert int(want[0][0, 0]) == (0xFFFFFFF9 + (
+        7 if name == "copy_u32" else 1)) % 2 ** 32
+    if name == "two_out_u32":
+        assert int(want[1][0, 0]) == 0xFFFFFFF9 * 3 % 2 ** 32
+
+
+@pytest.mark.parametrize("on_current", [True, False])
+def test_launch_enters_device_context_only_off_current(on_current,
+                                                        monkeypatch):
+    """build.launch, which every wrapper's CUDA path calls: the raw handle
+    of the card's current stream goes last, and a device context is
+    entered only for a card that is not the current device."""
+    from dbg_assembly_tpu_torch.ops import build
+    entered = []
+
+    class _Ctx:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            entered.append(self.dev)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda dev: 1000 + dev, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "device", _Ctx)
+    calls = []
+    dev = 2 if on_current else 3
+    assert build.launch(lambda *a: calls.append(a) or 0, dev, 11, 22) == 0
+    assert calls == [(11, 22, 1000 + dev)]
+    assert entered == ([] if on_current else [3])
+
+
+def test_launch_path_tool_summary_and_no_card(monkeypatch):
+    """tools/launch_path: the summary's quartiles of the runs' host ms,
+    and without a card it raises before timing anything."""
+    from dbg_assembly_tpu_torch.tools import launch_path
+    s = launch_path.summary("x", [4.0, 1.0, 3.0, 2.0, 5.0])
+    assert s == {"what": "x", "n_runs": 5, "calls": launch_path.CALLS,
+                 "median_ms": 3.0, "q1_ms": 2.0, "q3_ms": 4.0,
+                 "min_ms": 1.0, "max_ms": 5.0}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_path.main()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", REDESIGNED)
 def test_redesigned_kernel_matches_plain_on_card(name):
-    """copy_f32 and grid_block on the card == their plain versions at the
-    probe's shape, chip_smoke.py's edge shapes (their scalar paths) and
-    large shape, each contiguous and 4 bytes past 16-byte alignment."""
+    """The four redesigned probes on the card == their plain versions,
+    every output, at the probe's shape, chip_smoke.py's edge shapes (their
+    scalar paths) and large shape, each contiguous and 4 bytes past 16-byte
+    alignment; the integer probes on int32 bits over the whole range with
+    the values that wrap."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the probe kernels have no CPU mode")
     from chip_smoke import PROBE_EDGE_SHAPES, PROBE_LARGE_SHAPES
     p = probes.PROBES[name]
+    u32 = name in REDESIGNED_U32
     g = torch.Generator(device="cuda").manual_seed(5)
     for shape in (p.make_input().shape, *PROBE_EDGE_SHAPES[name],
                   PROBE_LARGE_SHAPES[name]):
         n = shape[0] * shape[1]
-        buf = torch.randn(n + 1, device="cuda", generator=g)
+        if u32:
+            buf = probes.to_torch(_u32_with_wraps(
+                n, (1, n + 1)).reshape(-1)).cuda()
+        else:
+            buf = torch.randn(n + 1, device="cuda", generator=g)
         for x in (buf[:n].view(shape), buf[1:].view(shape)):
             before = probes.launches[name]
-            (got,) = p.kernel(x)
+            got = p.kernel(x)
             torch.cuda.synchronize()
             assert probes.launches[name] == before + 1
-            assert torch.equal(got, p.plain(x)[0]), (shape,
-                                                     x.storage_offset())
+            want = p.plain(x)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and a.shape == x.shape
+                assert a.is_contiguous()
+                assert torch.equal(a, b), (shape, x.storage_offset())
