@@ -18,17 +18,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      starts with its counts at 0 and reports its launches;
   4. probes vs plain on the card: each probe kernel against its plain
      version on the probe's own input, exact, then, after a warm-up, timed
-     with CUDA events in turns plain / kernel / kernel / plain / library
-     (the one PyTorch call that computes it, where there is one; for
-     two_out_u32 the pair torch.add, torch.mul), 1000 calls a run, and by
-     the profiler's kernel time and the host time a call; the launch
-     path's host steps one by one for copy_f32, copy_u32 and two_out_u32;
-     the four redesigned probes (copy_f32, grid_block, copy_u32,
-     two_out_u32) also exact, every output, at shapes that take their
-     scalar paths and, with the library call or pair, at a shape where
-     bytes decide (256 MiB in, 256 MiB out a result), the integer ones on
-     int32 bits over the whole range with the values at which their
-     arithmetic wraps; timed there against their bytes bound;
+     with CUDA events in turns plain / kernel / kernel / plain / yardstick
+     (the one PyTorch call that computes it, where there is one, else the
+     fewest calls that compute its outputs exactly on the int32 bits:
+     two_out_u32, shift_u32, bitonic_stage and fori_sort_net; the record
+     names its form), 1000 calls a run, and by the profiler's kernel time
+     and the host time a call; the launch path's host steps one by one
+     for copy_f32, copy_u32 and two_out_u32; the six redesigned probes (copy_f32, grid_block,
+     copy_u32, two_out_u32, shift_u32, bitonic_stage) also exact, every
+     output, at shapes that take their scalar paths and, with the
+     yardstick, at a shape where bytes decide (256 MiB in, 256 MiB out a
+     result), the integer ones on int32 bits over the whole range with
+     the values at which their arithmetic wraps, the top bits set (an
+     arithmetic >> would show) and, for bitonic_stage, pairs across the
+     sign bit at one offset in both halves (a signed min would show);
+     timed there against their bytes bound;
   5. kernel vs plain on the card: chop against chop_plain on the same CUDA
      tensors, both modes, exact equality, at the shapes its tiling makes
      hard (k 1/16/17/31; one row; N not a multiple of a tile's rows; L 150,
@@ -257,9 +261,34 @@ _PROBE_LIBRARY = {
     "copy_u32": lambda x: torch.add(x, 7),      # wrapping add on the bits
     "grid_block": lambda x: torch.add(x, 1.0),
 }
-# two_out_u32 has no single call: the pair of calls that computes both of
-# its outputs is timed beside it (pair_ms), not in the library column
-_PROBE_PAIR = {"two_out_u32": lambda x: (torch.add(x, 1), torch.mul(x, 3))}
+_SIGN = -2 ** 31    # the int32 sign bit: x ^ _SIGN orders int32 as uint32
+
+
+def _bitonic_flip(x):
+    """min of x's halves into the top half, max into the bottom, unsigned:
+    the sign bit flipped around a signed minimum / maximum."""
+    y, out = x ^ _SIGN, torch.empty_like(x)
+    h = x.shape[0] // 2
+    torch.minimum(y[:h], y[h:], out=out[:h])
+    torch.maximum(y[:h], y[h:], out=out[h:])
+    return (out.bitwise_xor_(_SIGN),)
+
+
+# Where no single call computes a probe: the fewest PyTorch calls that
+# compute its outputs exactly on the int32 bits, timed beside it (pair_ms,
+# not in the library column), name -> (form, fn); the record names the
+# form (pair_form).  torch 2.11 refuses <<, minimum and maximum on a
+# uint32 view on the card, so the unsigned reading is made on int32 bits
+# (PERF.md section 6).
+_PROBE_PAIR = {
+    "two_out_u32": ("torch.add, torch.mul",
+                    lambda x: (torch.add(x, 1), torch.mul(x, 3))),
+    "shift_u32": ("int32: <<, >>, &, |, ^",
+                  lambda x: (((x << 2) | ((x >> 30) & 3)) ^ x,)),
+    "bitonic_stage": ("sign flip: ^, minimum, maximum, ^", _bitonic_flip),
+    "fori_sort_net": ("sign flip: ^, sort, ^", lambda x: (
+        torch.sort(x ^ _SIGN, dim=1).values.bitwise_xor_(_SIGN),)),
+}
 
 
 def _probe_ops(name: str, x: torch.Tensor) -> int:
@@ -279,36 +308,64 @@ def _probe_ops(name: str, x: torch.Tensor) -> int:
 
 # the redesigned probes at a shape where bytes decide (256 MiB in, 256 MiB
 # out a result), and inputs that take their scalar paths: a length not a
-# multiple of 4, columns not a multiple of 4, a pointer 4 bytes past
-# 16-byte alignment
+# multiple of 4, columns not a multiple of 4, bitonic_stage's half not a
+# multiple of 4, a pointer 4 bytes past 16-byte alignment
 PROBE_LARGE_SHAPES = {"copy_f32": (524_288, 128), "grid_block": (262_144, 256),
                       "copy_u32": (524_288, 128),
-                      "two_out_u32": (524_288, 128)}
+                      "two_out_u32": (524_288, 128),
+                      "shift_u32": (524_288, 128),
+                      "bitonic_stage": (524_288, 128)}
 _EDGES_1D = ((3, 5), (1, 1), (8, 128), (1000, 1001))
 PROBE_EDGE_SHAPES = {"copy_f32": _EDGES_1D,
                      "grid_block": ((16, 130), (8, 1), (64, 256),
                                     (8, 1024)),
-                     "copy_u32": _EDGES_1D, "two_out_u32": _EDGES_1D}
+                     "copy_u32": _EDGES_1D, "two_out_u32": _EDGES_1D,
+                     "shift_u32": _EDGES_1D,
+                     # even row counts: halves of 3, 15 and 499 499
+                     # elements take the scalar path even when aligned;
+                     # the probe's own shape and (1000, 1001), whose
+                     # halves are multiples of 4, the vector path
+                     "bitonic_stage": ((2, 3), (6, 5), (998, 1001),
+                                       (16, 128), (1000, 1001))}
 # uint32 inputs at which the integer probes' arithmetic wraps at 2^32:
-# x + 7 from 0xFFFFFFF9, x + 1 at 0xFFFFFFFF, x * 3 from 0x55555556
+# x + 7 from 0xFFFFFFF9, x + 1 at 0xFFFFFFFF, x * 3 from 0x55555556; and
+# with the top bits set, where x << 2 drops them and an arithmetic x >> 30
+# would bring in ones: 0x80000000, 0xC0000000, 0xFFFFFFFF
 PROBE_WRAP_VALUES = (*range(0xFFFFFFF9, 0x1_0000_0000), 0x55555555,
-                     0x55555556, 0x80000000, 0xAAAAAAAA, 0xAAAAAAAB)
+                     0x55555556, 0x80000000, 0xAAAAAAAA, 0xAAAAAAAB,
+                     0xC0000000)
+# (top, bottom) uint32 pairs across the sign bit, put at one offset in both
+# halves of bitonic_stage's input: a signed min or max would swap them
+PROBE_STRADDLE = ((0x7FFFFFFF, 0x80000000), (0, 0xFFFFFFFF),
+                  (0x80000000, 0x7FFFFFFF), (0xFFFFFFFF, 0))
 PROBE_ITERS = 1000     # calls a timed run: steady at a few µs a call
 LARGE_ITERS = 200      # at the large shapes, 36-54 ms a run
 
 
-def _probe_draw(dtype: torch.dtype, n: int, g: torch.Generator):
+def _int32_bits(values) -> torch.Tensor:
+    v = torch.tensor(values, dtype=torch.int64)
+    return ((v ^ 0x80000000) - 0x80000000).to(torch.int32).cuda()
+
+
+def _probe_draw(dtype: torch.dtype, n: int, g: torch.Generator,
+                half: int = 0):
     """n inputs on the card from generator g: float32 normals, or int32
     bits over the whole uint32 range with PROBE_WRAP_VALUES at both ends
-    (as many as fit)."""
+    (as many as fit) and, with ``half``, the PROBE_STRADDLE pairs at
+    1..k and half + 1..half + k (k as many as fit below 2 * half: the same
+    offset in both halves of x[:2 * half] and of x[1:])."""
     if dtype == torch.float32:
         return torch.randn(n, device="cuda", generator=g)
     x = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
                       device="cuda", generator=g)
-    wrap = torch.tensor(PROBE_WRAP_VALUES, dtype=torch.int64)
-    wrap = ((wrap ^ 0x80000000) - 0x80000000).to(torch.int32)[:n]
-    x[:len(wrap)] = wrap.cuda()
-    x[n - len(wrap):] = wrap.cuda()
+    wrap = _int32_bits(PROBE_WRAP_VALUES)[:n]
+    x[:len(wrap)] = wrap
+    x[n - len(wrap):] = wrap
+    k = min(len(PROBE_STRADDLE), half - 1)
+    if k > 0:
+        top, bottom = zip(*PROBE_STRADDLE[:k])
+        x[1:1 + k] = _int32_bits(top)
+        x[half + 1:half + 1 + k] = _int32_bits(bottom)
     return x
 
 
@@ -356,8 +413,14 @@ def _host_split(probes, name: str, x: torch.Tensor) -> dict:
     if name in _PROBE_PAIR:
         steps["torch.add"] = lambda: torch.add(x, 1)
         steps["torch.mul"] = lambda: torch.mul(x, 3)
-        steps["add + mul pair"] = lambda: _PROBE_PAIR[name](x)
+        steps["add + mul pair"] = lambda: _PROBE_PAIR[name][1](x)
     return {k: _host_ms(f, PROBE_ITERS) * 1e3 for k, f in steps.items()}
+
+
+def _straddle_half(name: str, n: int) -> int:
+    """The half at which _probe_draw puts PROBE_STRADDLE for probe
+    ``name``'s input of n elements (0: none)."""
+    return n // 2 if name == "bitonic_stage" else 0
 
 
 def _probe_edges(probes, name: str) -> None:
@@ -369,7 +432,7 @@ def _probe_edges(probes, name: str) -> None:
     g = torch.Generator(device="cuda").manual_seed(3)
     for shape in PROBE_EDGE_SHAPES[name]:
         n = shape[0] * shape[1]
-        buf = _probe_draw(dtype, n + 1, g)
+        buf = _probe_draw(dtype, n + 1, g, _straddle_half(name, n))
         for x in (buf[:n].view(shape), buf[1:].view(shape)):
             got = p.kernel(x)
             torch.cuda.synchronize()
@@ -382,15 +445,16 @@ def _probe_edges(probes, name: str) -> None:
 
 def _probe_large(probes, name: str) -> dict:
     """The kernel at PROBE_LARGE_SHAPES[name] == its plain version and
-    torch's call (or pair of calls), every output exactly; timed in turns
-    beside both."""
+    torch's call (or the yardstick's calls, _PROBE_PAIR), every output
+    exactly; timed in turns beside both."""
     p = probes.PROBES[name]
     shape = PROBE_LARGE_SHAPES[name]
     dtype = probes.to_torch(p.make_input()).dtype
     g = torch.Generator(device="cuda").manual_seed(4)
-    x = _probe_draw(dtype, shape[0] * shape[1], g).view(shape)
+    n = shape[0] * shape[1]
+    x = _probe_draw(dtype, n, g, _straddle_half(name, n)).view(shape)
     lib = _PROBE_LIBRARY.get(name)
-    pair = _PROBE_PAIR.get(name)
+    pair = _PROBE_PAIR.get(name, (None, None))[1]
     want = p.plain(x)
     fns = {"plain": lambda: p.plain(x), "kernel": lambda: p.kernel(x),
            "library": lib and (lambda: lib(x)),
@@ -406,12 +470,12 @@ def _probe_large(probes, name: str) -> dict:
                 raise AssertionError(f"probe {name} {shape}: {what} != "
                                      f"plain, max abs err {e}")
             err = max(err, e)
+    n_out = len(want)
     del got, want
     runs = _steady_turns(fns, LARGE_ITERS,
                          ("plain", "kernel", "kernel", "plain", "library",
                           "pair"))
-    n_out = 2 if pair else 1
-    bound_ms, bound_by = _bound((1 + n_out) * x.nbytes, n_out * x.numel())
+    bound_ms, bound_by = _bound((1 + n_out) * x.nbytes, _probe_ops(name, x))
     ms = sum(runs["kernel"]) / 2
     rec = {"shape_large": list(shape), "max_abs_err_large": err,
            "ms_large": ms, "ms_large_runs": runs["kernel"],
@@ -431,10 +495,11 @@ def _probe_large(probes, name: str) -> dict:
 
 def phase_probes(probes) -> dict:
     """Each probe kernel against its plain version on its own input, then
-    timed in turns beside it and, where one PyTorch call computes it, that
-    call (two_out_u32: the pair of calls): the CUDA-event ms a call, the
-    profiler's kernel time and the host time a call, and the launch path's
-    host steps; the redesigned four also at their edge and large shapes."""
+    timed in turns beside it and its yardstick (the one PyTorch call that
+    computes it, or the fewest calls, _PROBE_PAIR): the CUDA-event ms a
+    call, the profiler's kernel time and the host time a call, and the
+    launch path's host steps; the redesigned six also at their edge and
+    large shapes."""
     inputs = {name: probes.to_torch(p.make_input()).cuda()
               for name, p in probes.PROBES.items()}
     device_ms = _profiled_each(
@@ -451,11 +516,11 @@ def phase_probes(probes) -> dict:
             raise AssertionError(f"probe {name} kernel differs from its plain"
                                  f" version on the card: max abs err {err}")
         lib = _PROBE_LIBRARY.get(name)
-        pair = _PROBE_PAIR.get(name)
         if lib is not None and not torch.equal(lib(x), want[0]):
             raise AssertionError(f"probe {name}: library call != plain")
+        form, pair = _PROBE_PAIR.get(name, (None, None))
         if pair is not None and _max_abs_err(pair(x), want) != 0:
-            raise AssertionError(f"probe {name}: pair of calls != plain")
+            raise AssertionError(f"probe {name}: yardstick != plain")
         other = lib or pair
         runs = _steady_turns({"plain": lambda: p.plain(x),
                               "kernel": lambda: p.kernel(x),
@@ -472,12 +537,14 @@ def phase_probes(probes) -> dict:
                "library_host_ms": (_host_ms(lambda: lib(x), PROBE_ITERS)
                                    if lib else None)}
         if pair:
+            rec["pair_form"] = form
             rec["pair_ms"] = runs["library"][0]
             rec["pair_host_ms"] = _host_ms(lambda: pair(x), PROBE_ITERS)
         _log(f"probe {name} {tuple(x.shape)} ({PROBE_ITERS} calls a run): "
              f"kernel {runs['kernel'][0]:.4f} / {runs['kernel'][1]:.4f} ms, "
              f"plain {runs['plain'][0]:.4f} / {runs['plain'][1]:.4f} ms, "
-             f"library {rec['library_ms']}, pair {rec.get('pair_ms')}; "
+             f"library {rec['library_ms']}, pair {rec.get('pair_form')} "
+             f"{rec.get('pair_ms')}; "
              f"profiler kernel {rec['device_ms']} ms; host "
              f"{rec['host_ms']:.4f} ms a call (library "
              f"{rec['library_host_ms']}, pair {rec.get('pair_host_ms')})")
@@ -494,7 +561,7 @@ def phase_probes(probes) -> dict:
          + ", ".join(out) + "; " + ", ".join(PROBE_EDGE_SHAPES)
          + " also at their edge shapes (contiguous and 4 bytes past "
          "alignment) and their large shapes, integer ones with the values "
-         "that wrap")
+         "that wrap, the top bits and pairs across the sign bit")
     return out
 
 

@@ -239,8 +239,8 @@ PROBES = {
     "bitonic_stage": Probe(
         f"{_T}:146", lambda: _random_u32(0, 16, 128), bitonic_stage,
         bitonic_stage_plain,
-        lambda x: (np.concatenate([np.minimum(x[:8], x[8:]),
-                                   np.maximum(x[:8], x[8:])]),)),
+        lambda x: (np.concatenate([np.minimum(*np.split(x, 2)),
+                                   np.maximum(*np.split(x, 2))]),)),
     "fori_sort_net": Probe(
         f"{_T}:175", lambda: _random_u32(1, 8, 128), fori_sort_net,
         fori_sort_net_plain, lambda x: (np.sort(x, axis=1),)),

@@ -175,7 +175,7 @@ def test_kernel_matches_plain_on_card(name):
 
 
 REDESIGNED_F32 = ["copy_f32", "grid_block"]
-REDESIGNED_U32 = ["copy_u32", "two_out_u32"]
+REDESIGNED_U32 = ["copy_u32", "two_out_u32", "shift_u32", "bitonic_stage"]
 REDESIGNED = REDESIGNED_F32 + REDESIGNED_U32
 
 
@@ -197,8 +197,9 @@ def test_plain_at_large_shape_matches_numpy(name):
 
 def _u32_with_wraps(seed, shape):
     """Seeded uint32 over the whole range, with chip_smoke.py's
-    PROBE_WRAP_VALUES (where + 7, + 1 and * 3 wrap at 2^32), as many as
-    fit, at the start of the first row and the end of the last."""
+    PROBE_WRAP_VALUES (where + 7, + 1 and * 3 wrap at 2^32, and the top
+    bits set), as many as fit, at the start of the first row and the end
+    of the last."""
     from chip_smoke import PROBE_WRAP_VALUES
     x = np.random.default_rng(seed).integers(0, 2 ** 32, size=shape,
                                              dtype=np.uint32)
@@ -206,6 +207,28 @@ def _u32_with_wraps(seed, shape):
     x[0, :len(wrap)] = wrap
     x[-1, -len(wrap):] = wrap
     return x
+
+
+def _with_straddle(flat, half):
+    """chip_smoke.py's PROBE_STRADDLE pairs put into the flat uint32 array
+    at 1..k and half + 1..half + k, as its _probe_draw puts them: the same
+    offset in both halves of flat[:2 * half] and of flat[1:]."""
+    from chip_smoke import PROBE_STRADDLE
+    k = min(len(PROBE_STRADDLE), half - 1)
+    if k > 0:
+        top, bottom = zip(*PROBE_STRADDLE[:k])
+        flat[1:1 + k] = top
+        flat[half + 1:half + 1 + k] = bottom
+    return flat
+
+
+# each probe's result at 0xFFFFFFF9, the first wrap value, as Python ints
+_AT_FIRST_WRAP = {
+    "copy_u32": lambda v, x: (v + 7) % 2 ** 32,
+    "two_out_u32": lambda v, x: (v + 1) % 2 ** 32,
+    "shift_u32": lambda v, x: (((v << 2) | (v >> 30)) ^ v) % 2 ** 32,
+    "bitonic_stage": lambda v, x: min(v, int(x[x.shape[0] // 2, 0])),
+}
 
 
 @pytest.mark.parametrize("name", REDESIGNED_U32)
@@ -229,10 +252,86 @@ def test_u32_plain_with_wrap_values_matches_numpy(name):
         assert np.array_equal(probes.to_numpy(g, w), w)
     # the input holds a value at which each result wraps
     assert x[0, 0] == 0xFFFFFFF9
-    assert int(want[0][0, 0]) == (0xFFFFFFF9 + (
-        7 if name == "copy_u32" else 1)) % 2 ** 32
+    assert int(want[0][0, 0]) == _AT_FIRST_WRAP[name](0xFFFFFFF9, x)
     if name == "two_out_u32":
         assert int(want[1][0, 0]) == 0xFFFFFFF9 * 3 % 2 ** 32
+
+
+# ((v << 2) | (v >> 30)) ^ v with a logical >>, written out; an arithmetic
+# >> would give 0x3FFFFFFF at 0xC0000000, 0xFFFFFFFF at 0x80000000
+SHIFT_AT_TOP_BITS = [(0x80000000, 0x80000002), (0xC0000000, 0xC0000003),
+                     (0xFFFFFFFF, 0x00000000), (0x40000000, 0x40000001),
+                     (0xBFFFFFFF, 0x40000001)]
+
+
+@pytest.mark.parametrize("v,want", SHIFT_AT_TOP_BITS)
+def test_shift_u32_plain_at_top_bits_matches_numpy(v, want):
+    """shift_u32_plain reads the int32 bits as unsigned: at each value with
+    a top bit set it equals the result written out and numpy's uint32
+    formula, beside every other PROBE_WRAP_VALUES value in one row."""
+    from chip_smoke import PROBE_WRAP_VALUES
+    x = np.array([[v, *PROBE_WRAP_VALUES]], np.uint32)
+    (got,) = probes.shift_u32_plain(probes.to_torch(x))
+    got = probes.to_numpy(got, x)
+    assert got[0, 0] == want
+    assert np.array_equal(got, ((x << 2) | (x >> 30)) ^ x)
+    assert np.array_equal(got, probes.PROBES["shift_u32"].expect(x)[0])
+
+
+def _bitonic_edge_cases():
+    from chip_smoke import PROBE_EDGE_SHAPES
+    return [(shape, off) for shape in PROBE_EDGE_SHAPES["bitonic_stage"]
+            for off in (0, 1)]
+
+
+@pytest.mark.parametrize("shape,off", _bitonic_edge_cases())
+def test_bitonic_stage_plain_across_sign_bit_matches_numpy(shape, off):
+    """bitonic_stage_plain == numpy's unsigned minimum / maximum of the
+    halves at chip_smoke.py's edge shapes, on its buffer of n + 1 elements
+    read from offset 0 and 1, with PROBE_STRADDLE's pairs across the sign
+    bit at one offset in both halves, where a signed min would differ."""
+    n = shape[0] * shape[1]
+    half = n // 2
+    flat = _with_straddle(_u32_with_wraps(n, (1, n + 1)).reshape(-1), half)
+    x = flat[off:off + n].reshape(shape)
+    (got,) = probes.bitonic_stage_plain(probes.to_torch(x))
+    got = probes.to_numpy(got, x)
+    top, bottom = x.reshape(-1)[:half], x.reshape(-1)[half:]
+    want = np.concatenate([np.minimum(top, bottom), np.maximum(top, bottom)])
+    assert np.array_equal(got.reshape(-1), want)
+    assert np.array_equal(got, probes.PROBES["bitonic_stage"].expect(x)[0])
+    if half > 1:
+        # the straddling pairs are in both halves, and a signed min of
+        # them is another answer
+        i = 1 - off
+        assert (top[i], bottom[i]) == (0x7FFFFFFF, 0x80000000)
+        signed = np.minimum(top.view(np.int32), bottom.view(np.int32))
+        assert signed.view(np.uint32)[i] != want[i]
+
+
+@pytest.mark.parametrize("name", ["two_out_u32", "shift_u32",
+                                  "bitonic_stage", "fori_sort_net"])
+def test_yardstick_matches_plain_on_cpu(name):
+    """chip_smoke.py's yardstick (the fewest PyTorch calls that compute a
+    probe's outputs on the int32 bits) equals the plain version, every
+    output, at the probe's shape and, for the redesigned probes, at the
+    edge shapes with the wrap and straddle values."""
+    from chip_smoke import _PROBE_PAIR, PROBE_EDGE_SHAPES
+    p = probes.PROBES[name]
+    inputs = [p.make_input()]
+    for shape in PROBE_EDGE_SHAPES.get(name, ()):
+        n = shape[0] * shape[1]
+        flat = _u32_with_wraps(n, (1, n)).reshape(-1)
+        if name == "bitonic_stage":
+            flat = _with_straddle(flat, n // 2)
+        inputs.append(flat.reshape(shape))
+    _, fn = _PROBE_PAIR[name]
+    for x in inputs:
+        t = probes.to_torch(x)
+        got, want = fn(t), p.plain(t)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), x.shape
 
 
 @pytest.mark.parametrize("on_current", [True, False])
@@ -278,14 +377,33 @@ def test_launch_path_tool_summary_and_no_card(monkeypatch):
         launch_path.main()
 
 
+@pytest.mark.parametrize("sync", [False, True])
+def test_launch_path_host_runs_waits_for_the_card_with_sync(sync,
+                                                            monkeypatch):
+    """tools/launch_path: host_runs gives RUNS times of CALLS calls each,
+    the card idle at the start of every run and, with ``sync``, waited for
+    at the end of every run too; ``--probes`` without a card raises."""
+    from dbg_assembly_tpu_torch.tools import launch_path
+    calls, syncs = [], []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: syncs.append(1))
+    ms = launch_path.host_runs(lambda: calls.append(1), sync=sync)
+    assert len(ms) == launch_path.RUNS and min(ms) >= 0
+    assert len(calls) == 1 + launch_path.RUNS * launch_path.CALLS
+    assert len(syncs) == launch_path.RUNS * (1 + sync) + 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_path.main(["--probes", "shift_u32", "--shape", "8", "128"])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", REDESIGNED)
 def test_redesigned_kernel_matches_plain_on_card(name):
-    """The four redesigned probes on the card == their plain versions,
+    """The six redesigned probes on the card == their plain versions,
     every output, at the probe's shape, chip_smoke.py's edge shapes (their
     scalar paths) and large shape, each contiguous and 4 bytes past 16-byte
     alignment; the integer probes on int32 bits over the whole range with
-    the values that wrap."""
+    the values that wrap and the top bits, bitonic_stage with pairs across
+    the sign bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the probe kernels have no CPU mode")
     from chip_smoke import PROBE_EDGE_SHAPES, PROBE_LARGE_SHAPES
@@ -296,8 +414,10 @@ def test_redesigned_kernel_matches_plain_on_card(name):
                   PROBE_LARGE_SHAPES[name]):
         n = shape[0] * shape[1]
         if u32:
-            buf = probes.to_torch(_u32_with_wraps(
-                n, (1, n + 1)).reshape(-1)).cuda()
+            flat = _u32_with_wraps(n, (1, n + 1)).reshape(-1)
+            if name == "bitonic_stage":
+                flat = _with_straddle(flat, n // 2)
+            buf = probes.to_torch(flat).cuda()
         else:
             buf = torch.randn(n + 1, device="cuda", generator=g)
         for x in (buf[:n].view(shape), buf[1:].view(shape)):
