@@ -24,15 +24,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      two_out_u32, shift_u32, bitonic_stage and fori_sort_net; the record
      names its form), 1000 calls a run, and by the profiler's kernel time
      and the host time a call; the launch path's host steps one by one
-     for copy_f32, copy_u32 and two_out_u32; the six redesigned probes (copy_f32, grid_block,
-     copy_u32, two_out_u32, shift_u32, bitonic_stage) also exact, every
-     output, at shapes that take their scalar paths and, with the
+     for copy_f32, copy_u32 and two_out_u32; the seven redesigned probes
+     (copy_f32, grid_block, copy_u32, two_out_u32, shift_u32,
+     bitonic_stage, fori_sort_net) also exact, every output, at shapes
+     that take their scalar paths (and, for fori_sort_net, every row
+     width from 2 to 1024, rows not a multiple of a block's) and, with the
      yardstick, at a shape where bytes decide (256 MiB in, 256 MiB out a
      result), the integer ones on int32 bits over the whole range with
      the values at which their arithmetic wraps, the top bits set (an
-     arithmetic >> would show) and, for bitonic_stage, pairs across the
-     sign bit at one offset in both halves (a signed min would show);
-     timed there against their bytes bound;
+     arithmetic >> would show), for bitonic_stage pairs across the sign
+     bit at one offset in both halves (a signed min would show) and, for
+     fori_sort_net, rows drawn from the four values around the sign bit,
+     one row all equal, one sorted and one reversed; timed there against
+     their bytes bound;
   5. kernel vs plain on the card: chop against chop_plain on the same CUDA
      tensors, both modes, exact equality, at the shapes its tiling makes
      hard (k 1/16/17/31; one row; N not a multiple of a tile's rows; L 150,
@@ -314,7 +318,8 @@ PROBE_LARGE_SHAPES = {"copy_f32": (524_288, 128), "grid_block": (262_144, 256),
                       "copy_u32": (524_288, 128),
                       "two_out_u32": (524_288, 128),
                       "shift_u32": (524_288, 128),
-                      "bitonic_stage": (524_288, 128)}
+                      "bitonic_stage": (524_288, 128),
+                      "fori_sort_net": (524_288, 128)}
 _EDGES_1D = ((3, 5), (1, 1), (8, 128), (1000, 1001))
 PROBE_EDGE_SHAPES = {"copy_f32": _EDGES_1D,
                      "grid_block": ((16, 130), (8, 1), (64, 256),
@@ -326,7 +331,14 @@ PROBE_EDGE_SHAPES = {"copy_f32": _EDGES_1D,
                      # the probe's own shape and (1000, 1001), whose
                      # halves are multiples of 4, the vector path
                      "bitonic_stage": ((2, 3), (6, 5), (998, 1001),
-                                       (16, 128), (1000, 1001))}
+                                       (16, 128), (1000, 1001)),
+                     # every row width; w = 2 takes the scalar path even
+                     # when aligned, (13, 128) ends inside a block, and
+                     # 1024 spans warps (its stages through shared memory)
+                     "fori_sort_net": ((1, 2), (3, 4), (5, 8), (7, 16),
+                                       (3, 32), (9, 64), (8, 128),
+                                       (13, 128), (5, 256), (3, 512),
+                                       (256, 1024))}
 # uint32 inputs at which the integer probes' arithmetic wraps at 2^32:
 # x + 7 from 0xFFFFFFF9, x + 1 at 0xFFFFFFFF, x * 3 from 0x55555556; and
 # with the top bits set, where x << 2 drops them and an arithmetic x >> 30
@@ -338,8 +350,13 @@ PROBE_WRAP_VALUES = (*range(0xFFFFFFF9, 0x1_0000_0000), 0x55555555,
 # halves of bitonic_stage's input: a signed min or max would swap them
 PROBE_STRADDLE = ((0x7FFFFFFF, 0x80000000), (0, 0xFFFFFFFF),
                   (0x80000000, 0x7FFFFFFF), (0xFFFFFFFF, 0))
+# uint32 values around the sign bit, from which some of fori_sort_net's
+# rows are drawn: duplicates, and pairs across the sign bit in one row,
+# where a signed compare would show
+PROBE_SIGN_VALUES = (0x7FFFFFFE, 0x7FFFFFFF, 0x80000000, 0x80000001)
 PROBE_ITERS = 1000     # calls a timed run: steady at a few µs a call
 LARGE_ITERS = 200      # at the large shapes, 36-54 ms a run
+SORT_LARGE_ITERS = 50  # fori_sort_net's: its plain int64 sort, 9.4 ms a call
 
 
 def _int32_bits(values) -> torch.Tensor:
@@ -367,6 +384,24 @@ def _probe_draw(dtype: torch.dtype, n: int, g: torch.Generator,
         x[1:1 + k] = _int32_bits(top)
         x[half + 1:half + 1 + k] = _int32_bits(bottom)
     return x
+
+
+def _hard_rows(x: torch.Tensor, g: torch.Generator) -> None:
+    """Rows of x (2-D int32 bits on the card) that a sort finds hard, in
+    place, between the first and the last row (which keep the wrap
+    values): row 1 and every fourth row after it drawn from
+    PROBE_SIGN_VALUES, row 2 all 0x80000000, row 3 sorted as uint32 and
+    row 4 reversed, as many as fit."""
+    rows, w = x.shape
+    r = torch.arange(1, max(rows - 1, 1), 4, device="cuda")
+    x[r] = _int32_bits(PROBE_SIGN_VALUES)[torch.randint(
+        0, 4, (len(r), w), device="cuda", generator=g)]
+    if rows > 3:
+        x[2] = _SIGN
+    if rows > 4:
+        x[3] = torch.sort(x[3] ^ _SIGN).values ^ _SIGN
+    if rows > 5:
+        x[4] = torch.sort(x[4] ^ _SIGN, descending=True).values ^ _SIGN
 
 
 def _steady_turns(fns: dict, iters: int = PROBE_ITERS,
@@ -434,6 +469,8 @@ def _probe_edges(probes, name: str) -> None:
         n = shape[0] * shape[1]
         buf = _probe_draw(dtype, n + 1, g, _straddle_half(name, n))
         for x in (buf[:n].view(shape), buf[1:].view(shape)):
+            if name == "fori_sort_net":
+                _hard_rows(x, g)
             got = p.kernel(x)
             torch.cuda.synchronize()
             err = _max_abs_err(got, p.plain(x))
@@ -453,6 +490,8 @@ def _probe_large(probes, name: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(4)
     n = shape[0] * shape[1]
     x = _probe_draw(dtype, n, g, _straddle_half(name, n)).view(shape)
+    if name == "fori_sort_net":
+        _hard_rows(x, g)
     lib = _PROBE_LIBRARY.get(name)
     pair = _PROBE_PAIR.get(name, (None, None))[1]
     want = p.plain(x)
@@ -472,7 +511,8 @@ def _probe_large(probes, name: str) -> dict:
             err = max(err, e)
     n_out = len(want)
     del got, want
-    runs = _steady_turns(fns, LARGE_ITERS,
+    runs = _steady_turns(fns, SORT_LARGE_ITERS if name == "fori_sort_net"
+                         else LARGE_ITERS,
                          ("plain", "kernel", "kernel", "plain", "library",
                           "pair"))
     bound_ms, bound_by = _bound((1 + n_out) * x.nbytes, _probe_ops(name, x))
@@ -498,7 +538,7 @@ def phase_probes(probes) -> dict:
     timed in turns beside it and its yardstick (the one PyTorch call that
     computes it, or the fewest calls, _PROBE_PAIR): the CUDA-event ms a
     call, the profiler's kernel time and the host time a call, and the
-    launch path's host steps; the redesigned six also at their edge and
+    launch path's host steps; the seven redesigned also at their edge and
     large shapes."""
     inputs = {name: probes.to_torch(p.make_input()).cuda()
               for name, p in probes.PROBES.items()}
@@ -561,7 +601,8 @@ def phase_probes(probes) -> dict:
          + ", ".join(out) + "; " + ", ".join(PROBE_EDGE_SHAPES)
          + " also at their edge shapes (contiguous and 4 bytes past "
          "alignment) and their large shapes, integer ones with the values "
-         "that wrap, the top bits and pairs across the sign bit")
+         "that wrap, the top bits and pairs across the sign bit, "
+         "fori_sort_net with rows hard for a sort")
     return out
 
 

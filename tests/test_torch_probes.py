@@ -14,6 +14,7 @@ probe's own input, which the spy still records."""
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -176,7 +177,7 @@ def test_kernel_matches_plain_on_card(name):
 
 REDESIGNED_F32 = ["copy_f32", "grid_block"]
 REDESIGNED_U32 = ["copy_u32", "two_out_u32", "shift_u32", "bitonic_stage"]
-REDESIGNED = REDESIGNED_F32 + REDESIGNED_U32
+REDESIGNED = REDESIGNED_F32 + REDESIGNED_U32 + ["fori_sort_net"]
 
 
 @pytest.mark.parametrize("name", REDESIGNED_F32)
@@ -220,6 +221,25 @@ def _with_straddle(flat, half):
         flat[1:1 + k] = top
         flat[half + 1:half + 1 + k] = bottom
     return flat
+
+
+def _hard_rows(x, rng):
+    """chip_smoke.py's _hard_rows in numpy, in place on uint32 rows x:
+    between the first and the last row, row 1 and every fourth after it
+    drawn from PROBE_SIGN_VALUES, row 2 all 0x80000000, row 3 sorted and
+    row 4 reversed, as many as fit; returns x."""
+    from chip_smoke import PROBE_SIGN_VALUES
+    rows, w = x.shape
+    r = np.arange(1, max(rows - 1, 1), 4)
+    x[r] = np.array(PROBE_SIGN_VALUES, np.uint32)[rng.integers(
+        0, 4, (len(r), w))]
+    if rows > 3:
+        x[2] = 0x80000000
+    if rows > 4:
+        x[3] = np.sort(x[3])
+    if rows > 5:
+        x[4] = np.sort(x[4])[::-1]
+    return x
 
 
 # each probe's result at 0xFFFFFFF9, the first wrap value, as Python ints
@@ -324,7 +344,10 @@ def test_yardstick_matches_plain_on_cpu(name):
         flat = _u32_with_wraps(n, (1, n)).reshape(-1)
         if name == "bitonic_stage":
             flat = _with_straddle(flat, n // 2)
-        inputs.append(flat.reshape(shape))
+        x = flat.reshape(shape)
+        if name == "fori_sort_net":
+            _hard_rows(x, np.random.default_rng(n))
+        inputs.append(x)
     _, fn = _PROBE_PAIR[name]
     for x in inputs:
         t = probes.to_torch(x)
@@ -398,17 +421,17 @@ def test_launch_path_host_runs_waits_for_the_card_with_sync(sync,
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", REDESIGNED)
 def test_redesigned_kernel_matches_plain_on_card(name):
-    """The six redesigned probes on the card == their plain versions,
+    """The seven redesigned probes on the card == their plain versions,
     every output, at the probe's shape, chip_smoke.py's edge shapes (their
     scalar paths) and large shape, each contiguous and 4 bytes past 16-byte
     alignment; the integer probes on int32 bits over the whole range with
     the values that wrap and the top bits, bitonic_stage with pairs across
-    the sign bit."""
+    the sign bit, fori_sort_net with rows hard for a sort."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the probe kernels have no CPU mode")
     from chip_smoke import PROBE_EDGE_SHAPES, PROBE_LARGE_SHAPES
     p = probes.PROBES[name]
-    u32 = name in REDESIGNED_U32
+    u32 = name not in REDESIGNED_F32
     g = torch.Generator(device="cuda").manual_seed(5)
     for shape in (p.make_input().shape, *PROBE_EDGE_SHAPES[name],
                   PROBE_LARGE_SHAPES[name]):
@@ -421,6 +444,10 @@ def test_redesigned_kernel_matches_plain_on_card(name):
         else:
             buf = torch.randn(n + 1, device="cuda", generator=g)
         for x in (buf[:n].view(shape), buf[1:].view(shape)):
+            if name == "fori_sort_net":
+                rows = _hard_rows(probes.to_numpy(x, flat).copy(),
+                                  np.random.default_rng(n))
+                x.copy_(probes.to_torch(rows))
             before = probes.launches[name]
             got = p.kernel(x)
             torch.cuda.synchronize()
@@ -431,3 +458,134 @@ def test_redesigned_kernel_matches_plain_on_card(name):
                 assert a.dtype == b.dtype and a.shape == x.shape
                 assert a.is_contiguous()
                 assert torch.equal(a, b), (shape, x.storage_offset())
+
+
+# ------------------------------------------- fori_sort_net's kernel model
+SORT_NET_SRC = os.path.join(ROOT, "dbg_assembly_tpu_torch", "ops", "csrc",
+                            "probe_fori_sort_net.cu")
+SORT_WIDTHS = [2 ** p for p in range(1, 11)]
+
+
+def _source_values():
+    """kValues, the elements a lane of csrc/probe_fori_sort_net.cu."""
+    with open(SORT_NET_SRC) as f:
+        return int(re.search(r"constexpr int kValues = (\d+);", f.read())[1])
+
+
+def _top_bit(m):
+    return 1 << (m.bit_length() - 1)
+
+
+def _sort_net_stages(w):
+    """The kernel's stage masks in order: for k = 2, 4, .., w the mirrored
+    stage k - 1, then k / 4, .., 1."""
+    masks, k = [], 2
+    while k <= w:
+        masks.append(k - 1)
+        j = k // 4
+        while j >= 1:
+            masks.append(j)
+            j //= 2
+        k *= 2
+    return masks
+
+
+def _sort_net_model(x, V, seed=0):
+    """csrc/probe_fori_sort_net.cu in numpy on uint32 rows x: blocks of
+    256 threads, 8 warps of 32 lanes, lane t of warp u holding V
+    consecutive elements, e = 32 V u + V t + q; elements past the last row
+    random (the kernel's masked lanes hold values no row reads).  Each
+    stage of mask M as the kernel takes it: in the lane (M < V), min to
+    register q and max to q ^ M for q < q ^ M; across lanes (M < 32 V),
+    register q ^ (M % V) of lane t ^ (M // V), the lane with bit
+    top(M // V) clear keeping the min; across warps, the block's elements
+    through shared memory, the element with bit top(M) clear keeping the
+    min.  Returns the rows and the number of stages of each kind."""
+    rows, w = x.shape
+    n, per = rows * w, 256 * V
+    nb = -(-n // per)
+    flat = np.random.default_rng(seed).integers(0, 2 ** 32, nb * per,
+                                                dtype=np.uint32)
+    flat[:n] = x.reshape(-1)
+    a = flat.reshape(nb, 8, 32, V)
+    lane, q, e = np.arange(32), np.arange(V), np.arange(per)
+    kinds = {"lane": 0, "shuffle": 0, "shared": 0}
+    for M in _sort_net_stages(w):
+        if M < V:
+            b = a[..., q ^ M]
+            a = np.where(q < (q ^ M), np.minimum(a, b), np.maximum(a, b))
+            kinds["lane"] += 1
+        elif M < 32 * V:
+            b = a[:, :, lane ^ (M // V), :][..., q ^ (M % V)]
+            lower = ((lane & _top_bit(M // V)) == 0)[:, None]
+            a = np.where(lower, np.minimum(a, b), np.maximum(a, b))
+            kinds["shuffle"] += 1
+        else:
+            s = a.reshape(nb, per)
+            b = s[:, e ^ M]
+            lower = (e & _top_bit(M)) == 0
+            a = np.where(lower, np.minimum(s, b),
+                         np.maximum(s, b)).reshape(a.shape)
+            kinds["shared"] += 1
+    return a.reshape(-1)[:n].reshape(rows, w), kinds
+
+
+@pytest.mark.parametrize("V", [4, 8, 16])
+@pytest.mark.parametrize("w", SORT_WIDTHS)
+def test_sort_net_model_matches_np_sort(w, V):
+    """The kernel's network in its register and lane layout sorts every
+    row as uint32 at every width, with V = 4, 8 and 16 values a lane, on
+    more rows than a block holds (the last block ragged), with the wrap
+    values and rows hard for a sort."""
+    rows = 256 * V // w + 7
+    x = _hard_rows(_u32_with_wraps(w, (rows, w)), np.random.default_rng(w))
+    got, kinds = _sort_net_model(x, V)
+    assert np.array_equal(got, np.sort(x, axis=1))
+    stages = w.bit_length() - 1
+    assert sum(kinds.values()) == stages * (stages + 1) // 2
+    assert (kinds["shared"] > 0) == (w > 32 * V)
+
+
+# (values a lane, stages in the lane, stages across lanes) at w = 128:
+# a stage shuffles when its mask reaches past the lane's V elements
+SORT_NET_KINDS_128 = [(4, 13, 15), (8, 18, 10), (16, 22, 6)]
+
+
+@pytest.mark.parametrize("V,in_lane,shuffled", SORT_NET_KINDS_128)
+def test_sort_net_model_shuffles_at_128(V, in_lane, shuffled):
+    """At the probe's width the layout decides how many of the 28 stages
+    shuffle (V shuffles a lane each, 32 lanes holding 32 V / 128 rows):
+    15 at 4 values a lane, 6 at 16; the source's V is one of these."""
+    x = _u32_with_wraps(1, (8, 128))
+    got, kinds = _sort_net_model(x, V)
+    assert np.array_equal(got, np.sort(x, axis=1))
+    assert kinds == {"lane": in_lane, "shuffle": shuffled, "shared": 0}
+    assert _source_values() in [k[0] for k in SORT_NET_KINDS_128]
+
+
+def _sort_edge_cases():
+    from chip_smoke import PROBE_EDGE_SHAPES
+    return [(shape, off) for shape in PROBE_EDGE_SHAPES["fori_sort_net"]
+            for off in (0, 1)]
+
+
+@pytest.mark.parametrize("shape,off", _sort_edge_cases())
+def test_fori_sort_net_plain_and_model_at_edge_shapes(shape, off):
+    """At chip_smoke.py's edge shapes, on its buffer of n + 1 elements
+    read from offset 0 and 1, with the wrap values and rows hard for a
+    sort: the plain version and the model of the kernel with the source's
+    values a lane each equal np.sort as uint32; a signed sort differs."""
+    n = shape[0] * shape[1]
+    flat = _u32_with_wraps(n, (1, n + 1)).reshape(-1)
+    x = _hard_rows(flat[off:off + n].reshape(shape).copy(),
+                   np.random.default_rng(n))
+    want = np.sort(x, axis=1)
+    (got,) = probes.fori_sort_net_plain(probes.to_torch(x))
+    assert np.array_equal(probes.to_numpy(got, x), want)
+    assert np.array_equal(_sort_net_model(x, _source_values())[0], want)
+    # rows with values on both sides of the sign bit (every width from 8,
+    # by the wrap values), where a signed sort gives another order
+    straddles = (x >> 31).min(axis=1) != (x >> 31).max(axis=1)
+    assert straddles.any() or shape[1] < 8
+    signed = np.sort(x.view(np.int32), axis=1).view(np.uint32)
+    assert np.array_equal(signed, want) == (not straddles.any())
