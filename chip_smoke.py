@@ -134,7 +134,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      map_min_read 100, each on the card and with ``--device cpu``: every
      file under the two work dirs equal.  ``--profile`` adds (a) once more
      under torch.profiler and its kmerfreq step by step.
-  16. the mesh (run last): D = 4 shard slots on the machine's cards
+  16. the mesh (after phase 10): D = 4 shard slots on the machine's cards
      (parallel/mesh.data_mesh; on one card all four share it), the layout
      printed, each run against the single-device run an earlier phase
      made: (a) ``debruijn_contig -k 31 -i 0.02 -M 125 --mesh 4`` == phase
@@ -170,7 +170,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      batch has no invalid window; CUDA-event ms of the call and of the
      stats tail, k-mers a second; (d) contig_stage_step on phase 9's table
      at cut 2: card == CPU, all six outputs, with its wall.
-  18. the host twins of the JAX package (run last), each against a run an
+  18. the host twins of the JAX package (after 17), each against a run an
      earlier phase made: (a) kmerfreq.run(table_format="8bit") and the
      1-bit run at k 15 on the card (the 8-bit table is 1 GiB of host
      memory): the 8-bit table's > 1 bits packed == the 1-bit .cz, its
@@ -192,6 +192,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      peak host memory (VmRSS sampled every 20 ms while it runs, and
      getrusage's lifetime peak) and the chop's and the sort's launches
      (> 0 in (a)'s card runs and (b)).
+  19. the driver hooks and the distributed-path tools (run last): (a)
+     graft_entry.entry()'s step (count_unique_fast, [256, 150], k 31) on
+     the card == with device="cpu", every output exactly, timed with CUDA
+     events (20 calls after a warm-up) and by the host ms a call; (b)
+     graft_entry.dryrun_multichip(4) (correction, ingest, the mesh contig
+     stage, the sharded map_pair == the single-device one, scaffolding),
+     its wall; (c) tools/verify_comm_volume.py at its shape (1024 x 150,
+     k 31, 8 slots): both ingest steps' bytes between slots equal the kept
+     records of the segments that leave their slot, and every byte count,
+     dropped and doubling on the card == the CPU's; (d)
+     tools/measure_scaling.py at 65 536 reads over 1, 2, 4 and 8 slots on
+     the card, both steps timed, its table printed, the exact step's node
+     tables equal at every slot count.  Each part prints its wall, peak
+     device memory, the chop's and the sort's launches (> 0 in each; the
+     record's launches_hooks) and the bytes the collectives moved.
 Bounds (bound_ms) are the larger of the bytes each kernel must move (each
 input read once, each output written once) over the published 3.35 TB/s
 and its operations over 67 T a second (the published float32 rate outside
@@ -2681,6 +2696,81 @@ def phase_hosttwins(workdir: str, lib: str, files: list[str],
     return totals
 
 
+# ---------------------------------------------------------------- phase 19
+SCALING_BATCH = 65536
+
+
+def phase_hooks(kernels: dict) -> dict:
+    """The driver hooks and the two distributed-path tools on the card:
+    (a) entry()'s step == the same step with device="cpu" (uniq, counts,
+    n_unique, n_valid exactly), timed with CUDA events (20 calls after a
+    warm-up) and by the host ms a call; (b) dryrun_multichip(4), its
+    wall; (c) verify_comm_volume at its shape (N 1024 x L 150, k 31, 8
+    slots): every byte count, dropped and capacity doubling == the same
+    tool's run on the CPU in this process (the bytes do not depend on the
+    device), then its report, with the model's band on the raw step; (d)
+    measure_scaling at SCALING_BATCH reads, its table printed (it raises
+    unless the exact step's merged tables are equal at 1, 2, 4 and 8
+    slots).  Returns the chop's and the sort's launches over the four
+    runs."""
+    from dbg_assembly_tpu_torch import graft_entry
+    from dbg_assembly_tpu_torch.tools import measure_scaling
+    from dbg_assembly_tpu_torch.tools import verify_comm_volume as vcv
+    totals = dict.fromkeys(kernels, 0)
+
+    def counted(title: str, fn, collectives: bool = True):
+        out, counts = _mesh_run(title, kernels, fn, collectives=collectives)
+        for name, n in counts.items():
+            totals[name] += n
+        return out
+
+    # (a) the flagship step
+    step, args = graft_entry.entry()
+    got = counted("(a) entry() step, count_unique_fast [256, 150] at k 31",
+                  lambda: step(*args), collectives=False)
+    cstep, cargs = graft_entry.entry("cpu")
+    want = cstep(*cargs)
+    if not (torch.equal(got[0].cpu(), want[0])
+            and torch.equal(got[1].cpu(), want[1]) and got[2:] == want[2:]):
+        raise AssertionError("(a) entry() step on the card != on the CPU")
+    ev = _cuda_ms(lambda: step(*args))
+    host = _host_ms(lambda: step(*args))
+    _log(f"(a) entry() step on the card == on the CPU: {got[2]} unique of "
+         f"{got[3]} k-mers; {ev:.4f} ms a call (CUDA events, 20 calls after "
+         f"a warm-up), host {host:.4f} ms a call")
+
+    # (b) the distributed dry run, reads to scaffolds
+    counted("(b) dryrun_multichip(4)",
+            lambda: graft_entry.dryrun_multichip(4))
+    _log("(b) dryrun_multichip(4): every stage's check passed")
+
+    # (c) the communication volume, card against CPU
+    codes, lengths = vcv.tool_batch()
+    card = counted("(c) verify_comm_volume, 8 slots",
+                   lambda: vcv.measure(codes, lengths, vcv.TOOL_K, 8,
+                                       "cuda"))
+    cpu = vcv.measure(codes, lengths, vcv.TOOL_K, 8, "cpu")
+    keys = ("bytes", "dropped", "capacity", "capacity_doublings")
+    for name in ("graph_ingest_step", "graph_ingest_step_exact"):
+        if ({k: card[name][k] for k in keys}
+                != {k: cpu[name][k] for k in keys}):
+            raise AssertionError(f"(c) {name} on the card {card[name]} != "
+                                 f"on the CPU {cpu[name]}")
+    if card["record_bytes"] != cpu["record_bytes"]:
+        raise AssertionError("(c) routed record bytes differ")
+    vcv.report(card)
+    _log("(c) verify_comm_volume: every byte count, dropped and doubling "
+         "on the card == on the CPU")
+
+    # (d) the ingest step's scaling curve over slots sharing the card
+    rows = counted(f"(d) measure_scaling {SCALING_BATCH}",
+                   lambda: measure_scaling.run(SCALING_BATCH, "cuda"))
+    _log(measure_scaling.table(rows, SCALING_BATCH))
+    _log("(d) measure_scaling: the exact step's merged node tables are "
+         "equal at 1, 2, 4 and 8 slots")
+    return totals
+
+
 def _timed(fn, *args) -> float:
     t = time.perf_counter()
     fn(*args)
@@ -2783,6 +2873,11 @@ def main() -> int:
                                         prefix, contigs, table, kernels)
         for name, n in twin_launches.items():
             launches[name] += n
+        t = time.perf_counter()
+        hook_launches = phase_hooks(kernels)
+        _log(f"phase 19: {time.perf_counter() - t:.1f} s")
+        for name, n in hook_launches.items():
+            launches[name] += n
 
     records = [
         {"name": "chop", "route": "cuda",
@@ -2793,7 +2888,8 @@ def main() -> int:
          "launches_mesh": mesh_launches["chop"],
          "launches_multiprocess": mp_launches["multiprocess"]["chop"],
          "launches_spectrum": mp_launches["spectrum"]["chop"],
-         "launches_hosttwins": twin_launches["chop"], **kern},
+         "launches_hosttwins": twin_launches["chop"],
+         "launches_hooks": hook_launches["chop"], **kern},
         {"name": "radix_sort", "route": "cuda",
          "source": "dbg_assembly_tpu_torch/ops/csrc/radix_sort.cu",
          "replaces": "dbg_assembly_tpu/ops/pallas_sort.py:236",
@@ -2805,6 +2901,7 @@ def main() -> int:
          "launches_multiprocess": mp_launches["multiprocess"]["radix_sort"],
          "launches_spectrum": mp_launches["spectrum"]["radix_sort"],
          "launches_hosttwins": twin_launches["radix_sort"],
+         "launches_hooks": hook_launches["radix_sort"],
          **sort_rec}]
     for name, p in probes.PROBES.items():
         records.append({

@@ -30,7 +30,9 @@ def test_no_jax_import():
         "assert len(names) >= 15, names\n"
         "new = {'parallel.mesh', 'parallel.count_sharded', 'parallel.halo', "
         "'contig.mesh_assemble', 'correct.sharded', 'scaffold.sharded', "
-        "'parallel.ranks', 'kmer.stats', 'tools.launch_distributed'}\n"
+        "'parallel.ranks', 'kmer.stats', 'tools.launch_distributed', "
+        "'graft_entry', 'tools.verify_comm_volume', "
+        "'tools.measure_scaling'}\n"
         "assert {'dbg_assembly_tpu_torch.' + n for n in new} <= set(names)\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
