@@ -1,0 +1,6 @@
+"""Median over the passes of the host-clock span around the lowqual stage
+(every file it runs on, each command ending on an idle device)."""
+
+
+def read(ctx):
+    return ctx.span_median("lowqual")

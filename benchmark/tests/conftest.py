@@ -1,0 +1,114 @@
+"""Fixtures of the benchmark's own tests: a throwaway benchmark root with
+tiny cells made from the real configuration and traffic files, and the
+``gpu`` marker for tests that need the card."""
+
+import copy
+import json
+import os
+import shutil
+import sys
+
+import pytest
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where torch finds none")
+
+
+@pytest.fixture(autouse=True)
+def _needs_card(request):
+    if request.node.get_closest_marker("gpu"):
+        import torch
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card")
+
+
+def _load(*parts):
+    with open(os.path.join(BENCH, *parts)) as f:
+        return json.load(f)
+
+
+def tiny_cells() -> dict:
+    """name -> (config, traffic): the real files at a size the CPU holds
+    (k 13 for the correction table, a small initial hash)."""
+    ecoli = _load("configs", "ecoli_mg1655_pe250.json")
+    ecoli.update(name="tiny_ecoli", genome_length=30000)
+    for lib in ecoli["libraries"]:
+        lib["depth"] = 6
+    sa = _load("configs", "saureus_usa300_pe101.json")
+    sa.update(name="tiny_sa", genome_length=40000)
+    correct = _load("traffic", "correct.json")
+    for stage in correct["stages"]:
+        stage["args"][stage["args"].index("-k") + 1] = "13"
+    correct["check"] = {"random_reads": 60, "hardest_reads": 20}
+    contig = _load("traffic", "contig.json")
+    args = contig["stages"][0]["args"]
+    args[args.index("-i") + 1] = "0.001"
+    clean = _load("traffic", "clean.json")
+    for t in (correct, contig, clean):
+        t["warmup_reads"] = 100
+    return {"tiny.correct": (ecoli, correct),
+            "tiny.contig": (sa, contig),
+            "tiny.ecoli_contig": (ecoli, copy.deepcopy(contig)),
+            "tiny.clean": (ecoli, clean)}
+
+
+def make_root(where: str, cells: dict) -> tuple[str, str]:
+    """A benchmark root under ``where`` holding ``cells`` (name ->
+    (config, traffic)) and the real metric readers; returns (root,
+    benchmark folder)."""
+    bench = os.path.join(where, "benchmark")
+    os.makedirs(os.path.join(bench, "configs"))
+    os.makedirs(os.path.join(bench, "traffic"))
+    shutil.copytree(os.path.join(BENCH, "metrics"),
+                    os.path.join(bench, "metrics"))
+    manifest = _load("..", "BENCHMARK.json")
+    manifest["configs"], manifest["workloads"] = [], []
+    seen = set()
+    for name, (config, traffic) in cells.items():
+        tname = name.replace(".", "_")
+        if config["name"] not in seen:
+            seen.add(config["name"])
+            path = f"benchmark/configs/{config['name']}.json"
+            with open(os.path.join(where, path), "w") as f:
+                json.dump(config, f)
+            manifest["configs"].append(
+                {"name": config["name"], "source": config["source"],
+                 "file": path, "reduced": config["reduced"], "why": "test"})
+        with open(os.path.join(bench, "traffic", tname + ".json"), "w") as f:
+            json.dump(traffic, f)
+        manifest["workloads"].append(
+            {"name": name, "config": config["name"], "traffic": tname,
+             "chips": 1, "why": "test"})
+    for m in manifest["per_layer"]:
+        m["workloads"] = list(cells)
+    with open(os.path.join(where, "BENCHMARK.json"), "w") as f:
+        json.dump(manifest, f)
+    return where, bench
+
+
+@pytest.fixture
+def tiny_root(tmp_path):
+    return make_root(str(tmp_path), tiny_cells())
+
+
+@pytest.fixture
+def run_tiny(tiny_root):
+    """Run a tiny cell on the CPU: harness.run_cell past its look for a
+    card."""
+    import time
+    from benchmark import harness
+
+    def run(cell, seed=20260101, seconds=0.5, trace=False, control=None,
+            root_bench=tiny_root):
+        root, bench = root_bench
+        return harness.run_cell(cell, seed, seconds, trace,
+                                time.perf_counter(), device="cpu", root=root,
+                                bench=bench, control=control)
+    return run

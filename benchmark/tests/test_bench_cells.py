@@ -1,0 +1,276 @@
+"""Whole runs of tiny cells on the CPU, past the harness's look for a
+card: each traffic proves correct against the reference; a new mix,
+configuration and metric need only new files; every fault the cells can
+have, planted under the timed path, turns ``correct`` false; so does each
+cell's control."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from conftest import make_root, tiny_cells
+
+CELLS = ["tiny.correct", "tiny.contig", "tiny.ecoli_contig", "tiny.clean"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_is_correct(run_tiny, cell):
+    r = run_tiny(cell, trace=False)
+    assert r["correct"], r["compared"]
+    assert list(r)[-1] == "compared" and r["attempted"] >= 1
+    assert set(r["metrics"]) == {"mbases_per_s", "setup_s"}
+    assert r["metrics"]["mbases_per_s"]["value"] > 0
+
+
+def test_new_mix_config_and_metric_are_files_only(tmp_path, run_tiny):
+    """A throwaway traffic (kmerfreq alone at k 11), a configuration and a
+    per-layer metric, each added as a file and an entry."""
+    config, traffic = tiny_cells()["tiny.correct"]
+    config = dict(config, name="throwaway_cfg", genome_length=20000)
+    mix = dict(traffic, stages=[
+        {"span": "kmerfreq", "command": "kmerfreq",
+         "args": ["-k", "11", "-m", "1", "{lib}"]}])
+    root, bench = make_root(str(tmp_path / "x"), {"x.count": (config, mix)})
+    with open(os.path.join(bench, "metrics", "pass_count.py"), "w") as f:
+        f.write("def read(ctx):\n    return len(ctx.passes)\n")
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        manifest = json.load(f)
+    manifest["per_layer"].append(
+        {"name": "pass_count", "unit": "passes", "better": "higher",
+         "source": "program_counter", "layer": "workflow",
+         "moves": "mbases_per_s", "workloads": ["x.count"]})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(manifest, f)
+    r = run_tiny("x.count", trace=False, root_bench=(root, bench))
+    assert r["correct"], r["compared"]
+    assert set(r["compared"]) == {"passes_differ", "table_bytes_differ",
+                                  "spectrum_lines_differ"}
+    # the traced run needs the profiler's device activity: on the CPU
+    # only the readers that need no trace are asked for
+    from benchmark import harness
+    ctx = harness.Context(None, 1, {"bases": 1, "reads": 1}, {},
+                          passes=[{"wall": 1.0, "spans": {}}])
+    assert harness.metric_reader("pass_count", root, bench)(ctx) == 1
+
+
+def _patch_correct_unchanged(mp):
+    from dbg_assembly_tpu_torch.correct import pipeline
+    real = pipeline.correct_batch_torch
+
+    def unchanged(batch, *a, **kw):
+        ones, multis, deleteds, tls, trs, _ = real(batch, *a, **kw)
+        z = np.zeros_like(ones)
+        return z, z, z, z, z, batch.seqs_ascii
+    mp.setattr(pipeline, "correct_batch_torch", unchanged)
+
+
+def _patch_count_half(mp):
+    from dbg_assembly_tpu_torch.kmer import count
+    real = count.KmerCounter.add
+    mp.setattr(count.KmerCounter, "add",
+               lambda self, c, l: real(self, c[:len(c) // 2],
+                                       l[:len(l) // 2]))
+
+
+def _patch_table_bit(mp):
+    from dbg_assembly_tpu_torch.kmer import count
+    real = count.freq_bitmap
+
+    def flipped(*a, **kw):
+        out = real(*a, **kw)
+        out[np.flatnonzero(out)[0]] ^= 1
+        return out
+    mp.setattr(count, "freq_bitmap", flipped)
+
+
+def _patch_merge_unchanged(mp):
+    from dbg_assembly_tpu_torch.contig import graph
+    real = graph._merge_parts
+    mp.setattr(graph, "_merge_parts",
+               lambda parts, k: real(parts[:1], k))
+
+
+def _patch_ingest_half(mp):
+    from dbg_assembly_tpu_torch.contig import graph
+    real = graph._aggregate_batch
+    mp.setattr(graph, "_aggregate_batch",
+               lambda c, l, k, b: real(c[:len(c) // 2], l[:len(l) // 2], k,
+                                       b))
+
+
+def _patch_node_counter(mp):
+    from dbg_assembly_tpu_torch.contig import graph
+    real = graph.GraphBuilder.finalize
+
+    def altered(self):
+        t = real(self)
+        t.lcnt[len(t.lcnt) // 2, 0] += 7
+        return t
+    mp.setattr(graph.GraphBuilder, "finalize", altered)
+
+
+def _patch_lowqual_unchanged(mp):
+    from dbg_assembly_tpu_torch.clean import lowqual
+    real = lowqual.clean_lowqual_arrays
+
+    def untrimmed(*a, **kw):
+        res, quals = real(*a, **kw)
+        lengths = a[2].astype(np.int64)
+        res.keep_start[:] = 0
+        res.keep_len_pre[:] = lengths
+        res.final_len[:] = lengths
+        res.trimmed[:] = False
+        res.short[:] = False
+        return res, quals
+    mp.setattr(lowqual, "clean_lowqual_arrays", untrimmed)
+
+
+def _patch_adapter_half(mp):
+    from dbg_assembly_tpu_torch.clean import adapter
+    real = adapter._align_one_adapter
+
+    def half(codes, lengths, *a):
+        out = real(codes, lengths, *a)
+        n = codes.shape[0] // 2
+        for x in out:
+            x[n:] = 0
+        return out
+    mp.setattr(adapter, "_align_one_adapter", half)
+
+
+def _patch_lowqual_answer(mp):
+    from dbg_assembly_tpu_torch.clean import lowqual
+    real = lowqual._lowqual_scan
+
+    def altered(*a, **kw):
+        total, start, length = real(*a, **kw)
+        total[0] += 1e-6
+        return total, start, length
+    mp.setattr(lowqual, "_lowqual_scan", altered)
+
+
+FAULTS = [
+    ("tiny.correct", "state unchanged: correction returns its input",
+     _patch_correct_unchanged, "reads_differ"),
+    ("tiny.correct", "half the batch: counting sees half of each batch",
+     _patch_count_half, "table_bytes_differ"),
+    ("tiny.correct", "an answer altered: one bit of the table",
+     _patch_table_bit, "table_bytes_differ"),
+    ("tiny.contig", "state unchanged: the merge keeps the first batch",
+     _patch_merge_unchanged, "kmer_freq_lines_differ"),
+    ("tiny.contig", "half the batch: ingest sees half of each batch",
+     _patch_ingest_half, "kmer_freq_lines_differ"),
+    ("tiny.contig", "an answer altered: one edge counter",
+     _patch_node_counter, "kmer_freq_lines_differ"),
+    ("tiny.clean", "state unchanged: clean_lowqual trims nothing",
+     _patch_lowqual_unchanged, "lowqual_reads_differ"),
+    ("tiny.clean", "half the batch: the adapter DP scores half the reads",
+     _patch_adapter_half, "adapter_reads_differ"),
+    ("tiny.clean", "an answer altered: one read's error sum",
+     _patch_lowqual_answer, "lowqual_reads_differ"),
+]
+
+
+@pytest.mark.parametrize("cell,what,patch,number", FAULTS,
+                         ids=[f[1].split(":")[0].replace(" ", "_") + "-"
+                              + f[0] for f in FAULTS])
+def test_fault_is_caught(run_tiny, monkeypatch, cell, what, patch, number):
+    patch(monkeypatch)
+    r = run_tiny(cell, trace=False)
+    assert not r["correct"], what
+    assert r["compared"][number]["value"] > r["compared"][number]["limit"]
+
+
+# the faults that the checks replaying no tool (reference/guarantees.py)
+# catch as well
+GUARANTEE_FAULTS = [
+    ("tiny.correct", _patch_correct_unchanged, "untouched_reads_differ"),
+    ("tiny.correct", _patch_count_half, "untouched_reads_differ"),
+    ("tiny.contig", _patch_merge_unchanged, "contig_depths_differ"),
+    ("tiny.contig", _patch_ingest_half, "contig_depths_differ"),
+]
+
+
+@pytest.mark.parametrize("cell,patch,number", GUARANTEE_FAULTS,
+                         ids=[f[1].__name__[7:] for f in GUARANTEE_FAULTS])
+def test_fault_breaks_a_guarantee(run_tiny, monkeypatch, cell, patch,
+                                  number):
+    patch(monkeypatch)
+    r = run_tiny(cell, trace=False)
+    assert r["compared"][number]["value"] > r["compared"][number]["limit"]
+
+
+# each cell's control: the step that would tempt a later PR, with the
+# guarantee it breaks (the configuration's byte-identical files)
+CONTROLS = {
+    # the table's cutoff taken as >= instead of the upstream's strict >
+    "correct": {"kmerfreq": ["-m", "0"]},
+    # a link taken at >= the depth cutoff instead of the strict >
+    # (contig.cpp:132)
+    "contig": {"debruijn_contig": ["-D", "1"]},
+}
+
+
+# the number of the checks replaying no tool that each control breaks
+GUARANTEE = {"correct": "untouched_reads_differ",
+             "contig": "contig_steps_unsupported"}
+
+
+def _float32_qual2err(mp):
+    """clean_lowqual's error sums from float32 error terms, the nearest
+    precision below the float64 the upstream sums in."""
+    from dbg_assembly_tpu_torch.clean import lowqual
+    real = lowqual.qual2err_table
+    mp.setattr(lowqual, "qual2err_table",
+               lambda shift=33: real(shift).astype(np.float32)
+               .astype(np.float64))
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails(run_tiny, monkeypatch, cell):
+    kind = cell.split(".")[1].split("_")[-1]
+    if kind == "clean":
+        _float32_qual2err(monkeypatch)
+        r = run_tiny(cell, trace=False)
+    else:
+        r = run_tiny(cell, trace=False, control=CONTROLS[kind])
+    assert not r["correct"], r["compared"]
+    if kind in GUARANTEE:
+        got = r["compared"][GUARANTEE[kind]]
+        assert got["value"] > got["limit"], r["compared"]
+
+
+CONTROL_SEEDS = (4000000001, 4000000002, 4000000003)
+
+
+def _real_cells():
+    from benchmark import harness
+    with open(os.path.join(harness.ROOT, "BENCHMARK.json")) as f:
+        return [w["name"] for w in json.load(f)["workloads"]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", _real_cells())
+def test_control_fails_at_cell_size(monkeypatch, cell):
+    """The control on the card at the cell's own size, on three seeds; the
+    numbers compared are appended, a JSON line a run, to the file that
+    $CONTROLS_JSONL names, where it is set."""
+    import time
+    from benchmark import harness
+    traffic = harness.load_cell(cell)[1]["traffic"]
+    control = None
+    if traffic == "clean":
+        _float32_qual2err(monkeypatch)
+    else:
+        control = CONTROLS[traffic]
+    out = os.environ.get("CONTROLS_JSONL")
+    for seed in CONTROL_SEEDS:
+        r = harness.run_cell(cell, seed, 1.0, False, time.perf_counter(),
+                             control=control)
+        if out:
+            with open(out, "a") as f:
+                f.write(json.dumps({"cell": cell, "seed": seed,
+                                    "compared": r["compared"]}) + "\n")
+        assert not r["correct"], (seed, r["compared"])
