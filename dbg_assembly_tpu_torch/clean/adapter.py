@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import dna, resolve_device
+from .. import dna, resolve_device, spans
 from ..io import fastq, stat as statio
 
 DEFAULT_ADAPTERS = {
@@ -137,14 +137,15 @@ def clean_adapter_arrays(read_codes: np.ndarray, lengths: np.ndarray,
         outs = [np.zeros(n, np.int32) for _ in range(5)]
         for off in range(0, n, chunk):
             end = min(off + chunk, n)
-            res = _align_one_adapter(
-                torch.from_numpy(np.ascontiguousarray(
-                    read_codes[off:end])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(
-                    lengths[off:end], np.int32)),
-                acodes, len(aseq))
-            for o, x in zip(outs, res):
-                o[off:end] = x.cpu().numpy()
+            with spans.span("adapter.align", chunks=1, reads=end - off):
+                res = _align_one_adapter(
+                    torch.from_numpy(np.ascontiguousarray(
+                        read_codes[off:end])).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(
+                        lengths[off:end], np.int32)),
+                    acodes, len(aseq))
+                for o, x in zip(outs, res):
+                    o[off:end] = x.cpu().numpy()
             counts["chunks"] += 1
         per_adapter.append(outs)
 
@@ -233,19 +234,21 @@ def run_file(in_path: str, out_path: str, stat_path: str,
     clean_bases = int(final_len[~res.short].sum())
 
     out = bytearray()
-    for i in range(n):
-        head = batch.heads[i]
-        if trimmed[i]:
-            head += (f"   Aligned to adapter {ids[res.hit[i]]}, "
-                     f" reads_pos: {res.read_start[i]}-{res.read_end[i]}, "
-                     f"adapter_pos: {res.adapter_start[i]}-"
-                     f"{res.adapter_end[i]},   score: {res.score[i]}"
-                     ).encode()
-        if res.short[i]:
-            head += b"   RemoveShort"
-        l_ = int(final_len[i])
-        out += head + b"\n" + seq[i, :l_].tobytes() + b"\n+\n" \
-            + batch.quals[i, :l_].tobytes() + b"\n"
+    with spans.span("adapter.format", records=n):
+        for i in range(n):
+            head = batch.heads[i]
+            if trimmed[i]:
+                head += (f"   Aligned to adapter {ids[res.hit[i]]}, "
+                         f" reads_pos: {res.read_start[i]}-"
+                         f"{res.read_end[i]}, "
+                         f"adapter_pos: {res.adapter_start[i]}-"
+                         f"{res.adapter_end[i]},   score: {res.score[i]}"
+                         ).encode()
+            if res.short[i]:
+                head += b"   RemoveShort"
+            l_ = int(final_len[i])
+            out += head + b"\n" + seq[i, :l_].tobytes() + b"\n+\n" \
+                + batch.quals[i, :l_].tobytes() + b"\n"
     fastq.gz_write_bytes(out_path, bytes(out))
 
     statio.write_clean_adapter_stat(stat_path, raw_reads, raw_bases,

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, spans
 from ..io import fastq, stat as statio
 
 # reads a device batch: the scan holds the batch's qualities ([N, L] uint8)
@@ -131,13 +131,14 @@ def clean_lowqual_arrays(quals_in: np.ndarray, seq_ascii: np.ndarray,
     best_len = np.zeros(n, np.int64)
     for off in range(0, n, chunk):
         end = min(off + chunk, n)
-        te, bs, bl = _lowqual_scan(
-            torch.from_numpy(np.ascontiguousarray(quals[off:end])).to(dev),
-            torch.from_numpy(np.ascontiguousarray(lengths[off:end])),
-            err_cutoff, quality_shift)
-        total_err[off:end] = te.cpu().numpy()
-        best_start[off:end] = bs.cpu().numpy()
-        best_len[off:end] = bl.cpu().numpy()
+        with spans.span("lowqual.scan", chunks=1, reads=end - off):
+            te, bs, bl = _lowqual_scan(
+                torch.from_numpy(np.ascontiguousarray(quals[off:end])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(lengths[off:end])),
+                err_cutoff, quality_shift)
+            total_err[off:end] = te.cpu().numpy()
+            best_start[off:end] = bs.cpu().numpy()
+            best_len[off:end] = bl.cpu().numpy()
         counts["chunks"] += 1
 
     lengths = lengths.astype(np.int64)
@@ -178,19 +179,21 @@ def run_file(in_path: str, out_path: str, stat_path: str,
     clean_bases = int(res.final_len.sum())
 
     out = bytearray()
-    for i in range(n):
-        head = batch.heads[i]
-        L = int(lengths[i])
-        rq = statio.fmt_lexical(res.total_err[i] / L * 100) if L else "nan"
-        head = head + b"    RQ: " + rq.encode() + b"%"
-        if res.trimmed[i]:
-            head += b"  TrimLowQual"
-        if res.short[i]:
-            head += b"  FilterShort"
-        s = int(res.keep_start[i])
-        l_ = int(res.final_len[i])
-        out += head + b"\n" + seq[i, s:s + l_].tobytes() + b"\n+\n" \
-            + quals[i, s:s + l_].tobytes() + b"\n"
+    with spans.span("lowqual.format", records=n):
+        for i in range(n):
+            head = batch.heads[i]
+            L = int(lengths[i])
+            rq = statio.fmt_lexical(res.total_err[i] / L * 100) if L \
+                else "nan"
+            head = head + b"    RQ: " + rq.encode() + b"%"
+            if res.trimmed[i]:
+                head += b"  TrimLowQual"
+            if res.short[i]:
+                head += b"  FilterShort"
+            s = int(res.keep_start[i])
+            l_ = int(res.final_len[i])
+            out += head + b"\n" + seq[i, s:s + l_].tobytes() + b"\n+\n" \
+                + quals[i, s:s + l_].tobytes() + b"\n"
     fastq.gz_write_bytes(out_path, bytes(out))
 
     statio.write_clean_lowqual_stat(stat_path, raw_reads, raw_bases,

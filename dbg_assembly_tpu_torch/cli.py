@@ -24,12 +24,20 @@ runs on the GPU and fails when there is none; --device cpu runs the
 kernels' plain PyTorch versions and the device programs on the CPU.  The
 text helpers (fasta_len ... simulate_lowfreq_kmer) do no device work and
 take no --device.
+
+Each command runs inside the span ``cmd.<command>`` (spans.py).  With
+DBG_TRACE_OUT=<dir> set, each command writes its spans to
+<dir>/<command>.<pid>.<id>.trace.json, a Chrome trace on torch.profiler's
+exported timeline.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+
+from . import spans
 
 
 def _device_flag(ap: argparse.ArgumentParser) -> None:
@@ -515,7 +523,13 @@ def main(argv=None):
         print(f"unknown command {cmd}; commands: "
               + " ".join(sorted(COMMANDS)), file=sys.stderr)
         return 2
-    COMMANDS[cmd](argv[1:])
+    with spans.command(cmd) as s:
+        COMMANDS[cmd](argv[1:])
+    out = os.environ.get("DBG_TRACE_OUT")
+    if out:
+        os.makedirs(out, exist_ok=True)
+        spans.write_chrome_trace(os.path.join(
+            out, f"{cmd}.{os.getpid()}.{s.command}.trace.json"), s.command)
     return 0
 
 

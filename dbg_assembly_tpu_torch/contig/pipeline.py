@@ -18,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .. import spans
 from ..io import fastq
 from .graph import GraphBuilder
 from .pointer_doubling import assemble_doubling
@@ -51,7 +52,8 @@ def _ingest(files, fmt, ksize, max_read_len, device, ranges=None,
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(_read, files[0], fmt) if files else None
         for i in range(len(files)):
-            batch = fut.result()
+            with spans.span("contig.parse_wait"):
+                batch = fut.result()
             if i + 1 < len(files):
                 fut = ex.submit(_read, files[i + 1], fmt)
             codes, lengths = batch.codes, batch.lengths
@@ -113,9 +115,11 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
         log.hash_init()
 
     file_lengths: list | None = [] if log else None
-    gb = _ingest(files, fmt, ksize, max_read_len, device,
-                 lengths_sink=file_lengths, mesh=mesh)
-    table = gb.finalize()
+    with spans.span("contig.ingest"):
+        gb = _ingest(files, fmt, ksize, max_read_len, device,
+                     lengths_sink=file_lengths, mesh=mesh)
+    with spans.span("contig.finalize"):
+        table = gb.finalize()
 
     # ---- enlargement / degrade schedule
     schedule = None
@@ -123,52 +127,57 @@ def run(lib_file: str, prefix: str, ksize: int = 31, fmt: int = 1,
     normal = table.kmers != np.uint64(0)
     if int(normal.sum()) > _cap(initial_hash_size(params),
                                 params.load_factor):
-        first_read = gb.stream_to_read(table.first_idx[normal])
-        schedule = compute_hash_schedule(first_read, gb.file_starts,
-                                         gb.read_seq, params)
-        if schedule.ingest_ranges is not None:
-            # degrade: re-ingest exactly the reference's read subset
-            file_lengths = [] if log else None
-            gb = _ingest(files, fmt, ksize, max_read_len, device,
-                         ranges=schedule.ingest_ranges,
-                         lengths_sink=file_lengths, mesh=mesh)
-            table = gb.finalize()
-            normal = table.kmers != np.uint64(0)
+        with spans.span("contig.schedule"):
             first_read = gb.stream_to_read(table.first_idx[normal])
             schedule = compute_hash_schedule(first_read, gb.file_starts,
                                              gb.read_seq, params)
-        if readout == "exact":
-            # per-epoch occurrence counts for the count_conflict parity: one
-            # truncated recount per enlargement boundary (the doubling
-            # readout lays out the initial table only)
-            epoch_occ = [
-                _occurrences_before(files, fmt, ksize, max_read_len,
-                                    schedule.ingest_ranges, q, table, device)
-                for q in schedule.enlarge_reads] or None
+            if schedule.ingest_ranges is not None:
+                # degrade: re-ingest exactly the reference's read subset
+                file_lengths = [] if log else None
+                gb = _ingest(files, fmt, ksize, max_read_len, device,
+                             ranges=schedule.ingest_ranges,
+                             lengths_sink=file_lengths, mesh=mesh)
+                table = gb.finalize()
+                normal = table.kmers != np.uint64(0)
+                first_read = gb.stream_to_read(table.first_idx[normal])
+                schedule = compute_hash_schedule(first_read, gb.file_starts,
+                                                 gb.read_seq, params)
+            if readout == "exact":
+                # per-epoch occurrence counts for the count_conflict
+                # parity: one truncated recount per enlargement boundary
+                # (the doubling readout lays out the initial table only)
+                epoch_occ = [
+                    _occurrences_before(files, fmt, ksize, max_read_len,
+                                        schedule.ingest_ranges, q, table,
+                                        device)
+                    for q in schedule.enlarge_reads] or None
 
     if log:
         _emit_file_log(log, files, file_lengths, ksize, schedule, gb)
 
-    if readout == "doubling":
-        if mesh is not None:
-            from .mesh_assemble import assemble_doubling_mesh
-            stats = assemble_doubling_mesh(table, params, prefix, mesh)
+    with spans.span("contig.readout"):
+        if readout == "doubling":
+            if mesh is not None:
+                from .mesh_assemble import assemble_doubling_mesh
+                stats = assemble_doubling_mesh(table, params, prefix, mesh)
+            else:
+                stats = assemble_doubling(table, params, prefix, device)
+            if log:
+                log.hash_params(stats.hash_size, stats.total_nodes,
+                                stats.hash_conflicts_occ)
         else:
-            stats = assemble_doubling(table, params, prefix, device)
+            with spans.span("contig.readout.layout"):
+                asm = RefAssembler(table, params, schedule, epoch_occ)
+            if log:
+                log.hash_params(asm.size, asm.n_nodes,
+                                asm.stats.hash_conflicts_occ)
+            with spans.span("contig.readout.replay"):
+                stats = asm.run(prefix)
         if log:
-            log.hash_params(stats.hash_size, stats.total_nodes,
-                            stats.hash_conflicts_occ)
-    else:
-        asm = RefAssembler(table, params, schedule, epoch_occ)
-        if log:
-            log.hash_params(asm.size, asm.n_nodes,
-                            asm.stats.hash_conflicts_occ)
-        stats = asm.run(prefix)
-    if log:
-        log.links(stats)
-        log.pruning(stats)
-        brk, bra = count_end_marks(prefix)
-        log.readout(stats, brk, bra)
+            log.links(stats)
+            log.pruning(stats)
+            brk, bra = count_end_marks(prefix)
+            log.readout(stats, brk, bra)
     return stats
 
 

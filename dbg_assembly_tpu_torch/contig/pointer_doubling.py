@@ -19,20 +19,21 @@ at a time (contig.cpp:832-896).  Here:
 
 Each record is byte-identical to the exact readout's; only the file order of
 length ties can differ.  Pruning state is host numpy as in the JAX package;
-the device holds the node table only while chains resolve.  DBG_PD_PROFILE
+the device holds the node table only while chains resolve.  Each step is a
+span contig.doubling.<step> (dbg_assembly_tpu_torch/spans.py); DBG_PD_PROFILE
 set prints a "[pd]" line a stage step and a "[ro]" line a readout step with
-its seconds, as the JAX package does.
+its seconds, from the step's span, as the JAX package prints its own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 
 import numpy as np
 import torch
 
-from .. import dna, native, resolve_device
+from .. import dna, native, resolve_device, spans
 from ..dna import bit2seq
 from ..io import stat as statio
 from .graph import NodeTable
@@ -53,20 +54,19 @@ def _adjust_depth_bytes(d: np.ndarray) -> np.ndarray:
     return np.where((d == 10) | (d == 62), d - 1, d).astype(np.uint8)
 
 
-class _StepClock:
-    """DBG_PD_PROFILE's step lines: each call prints the step's name and
-    the seconds since the previous call (or the clock's start)."""
+_RO = "    [ro]"
+_PD = "  [pd]"
 
-    def __init__(self, tag: str):
-        self.on = bool(os.environ.get("DBG_PD_PROFILE"))
-        self.tag = tag
-        self.t0 = time.perf_counter()
 
-    def __call__(self, msg: str) -> None:
-        if self.on:
-            print(f"{self.tag} {msg:18s} "
-                  f"{time.perf_counter() - self.t0:7.2f}s", flush=True)
-        self.t0 = time.perf_counter()
+@contextlib.contextmanager
+def _step(tag: str, name: str):
+    """One step of the doubling readout as the span contig.doubling.<name>
+    (spaces as '_'); DBG_PD_PROFILE set prints "<tag> <name> <seconds>s"
+    from the span as it closes."""
+    with spans.span("contig.doubling." + name.replace(" ", "_")) as s:
+        yield
+    if os.environ.get("DBG_PD_PROFILE"):
+        print(f"{tag} {name:18s} {s.seconds:7.2f}s", flush=True)
 
 
 # =========================================================================
@@ -887,32 +887,32 @@ def read_out_contigs(g: _Graph, prefix: str):
     byte-identical to the serial path's; only file ORDER can differ
     (length-sort ties).  Cycles and hairpin (self-reverse) chains fall
     back to the exact serial walker in slot order."""
-    _t = _StepClock("    [ro]")
     p = g.p
     M = g.M
     k = g.k
-    alive = (~g.deleted[:M]) & g.linear[:M]
+    with _step(_RO, "succ_resolve"):
+        alive = (~g.deleted[:M]) & g.linear[:M]
 
-    n_states = 2 * M
-    STOP = n_states
-    node = np.repeat(np.arange(M, dtype=np.int64), 2)
-    sdir = np.tile(np.array([1, -1], np.int64), M)
-    base = np.where(sdir == 1, g.r_base[node], g.l_base[node])
-    depth = np.where(sdir == 1, g.rcnt[node, base],
-                     g.lcnt[node, base]).astype(np.int64)
-    # e and dist are meaningful on non-cyclic states only; everything
-    # below reads them there alone
-    if type(g) is _Graph:
-        succ, e, dist, cyclic = resolve_on_device(g, alive)
-        _t("succ_resolve")
-    else:
-        # a subclass (MeshGraph) builds the successor through its own
-        # locate and resolves the chains with its own resolve_chains
-        nf, ndir = g.next_ids(node, sdir, base)
-        nxt = g.locate(nf)
-        ok = alive[node] & (nxt != M) & g.linear[np.minimum(nxt, M)]
-        succ = np.where(ok, 2 * nxt + (ndir == -1), STOP).astype(np.int64)
-        e, dist, cyclic = g.resolve_chains(succ)
+        n_states = 2 * M
+        STOP = n_states
+        node = np.repeat(np.arange(M, dtype=np.int64), 2)
+        sdir = np.tile(np.array([1, -1], np.int64), M)
+        base = np.where(sdir == 1, g.r_base[node], g.l_base[node])
+        depth = np.where(sdir == 1, g.rcnt[node, base],
+                         g.lcnt[node, base]).astype(np.int64)
+        # e and dist are meaningful on non-cyclic states only; everything
+        # below reads them there alone
+        if type(g) is _Graph:
+            succ, e, dist, cyclic = resolve_on_device(g, alive)
+        else:
+            # a subclass (MeshGraph) builds the successor through its own
+            # locate and resolves the chains with its own resolve_chains
+            nf, ndir = g.next_ids(node, sdir, base)
+            nxt = g.locate(nf)
+            ok = alive[node] & (nxt != M) & g.linear[np.minimum(nxt, M)]
+            succ = np.where(ok, 2 * nxt + (ndir == -1),
+                            STOP).astype(np.int64)
+            e, dist, cyclic = g.resolve_chains(succ)
 
     def states_next(s: np.ndarray):
         """(next node ids, arriving directions) of directed states."""
@@ -922,178 +922,179 @@ def read_out_contigs(g: _Graph, prefix: str):
         nf1, nd1 = g.next_ids(nid, np.where(right, 1, -1), b)
         return g.locate(nf1), nd1
 
-    is_state = alive[node]
-    # head = alive state, neither it nor its reverse cyclic, reverse has no
-    # successor; fallback = nodes of cyclic alive states
-    head_states, fb_arr = native.collect_heads(
-        alive.astype(np.uint8), succ, cyclic.astype(np.uint8))
-    mate = e[head_states] ^ 1
-    hairpin = mate == head_states
-    fallback_nodes = set(fb_arr.tolist())
-    for h in head_states[hairpin]:
-        s = int(h)
-        # hairpin chain: collect its nodes for serial fallback
-        while s != STOP:
-            fallback_nodes.add(int(node[s]))
-            s = int(succ[s])
-    head_states = head_states[(head_states <= mate) & ~hairpin]
-    _t("heads")
+    with _step(_RO, "heads"):
+        is_state = alive[node]
+        # head = alive state, neither it nor its reverse cyclic, reverse
+        # has no successor; fallback = nodes of cyclic alive states
+        head_states, fb_arr = native.collect_heads(
+            alive.astype(np.uint8), succ, cyclic.astype(np.uint8))
+        mate = e[head_states] ^ 1
+        hairpin = mate == head_states
+        fallback_nodes = set(fb_arr.tolist())
+        for h in head_states[hairpin]:
+            s = int(h)
+            # hairpin chain: collect its nodes for serial fallback
+            while s != STOP:
+                fallback_nodes.add(int(node[s]))
+                s = int(succ[s])
+        head_states = head_states[(head_states <= mate) & ~hairpin]
 
     recs = []   # (seq bytes, depth bytes, header str after id)
 
     if len(head_states):
-        n_chains = len(head_states)
-        L_chain = dist[head_states]
-        head_dir = sdir[head_states]
-        # chain id of every state via its end state
-        cid_of_end = native._huge_empty(n_states, np.int64)
-        cid_of_end.fill(-1)
-        cid_of_end[e[head_states]] = np.arange(n_chains)
-        st_ids = np.flatnonzero(is_state & ~cyclic)
-        cid = cid_of_end[e[st_ids]]
-        selm = cid >= 0
-        st_ids = st_ids[selm]
-        cid = cid[selm]
-        pos = L_chain[cid] - dist[st_ids]
-        # chars/depths in CHAIN orientation (original=+1 convention:
-        # BASES when the state walks canonical-rightward, C_BASES else)
-        b = base[st_ids]
-        rel = np.where(sdir[st_ids] == 1, b, 3 - b).astype(np.int64)
-        dep = depth[st_ids]
+        with _step(_RO, "body scatters"):
+            n_chains = len(head_states)
+            L_chain = dist[head_states]
+            head_dir = sdir[head_states]
+            # chain id of every state via its end state
+            cid_of_end = native._huge_empty(n_states, np.int64)
+            cid_of_end.fill(-1)
+            cid_of_end[e[head_states]] = np.arange(n_chains)
+            st_ids = np.flatnonzero(is_state & ~cyclic)
+            cid = cid_of_end[e[st_ids]]
+            selm = cid >= 0
+            st_ids = st_ids[selm]
+            cid = cid[selm]
+            pos = L_chain[cid] - dist[st_ids]
+            # chars/depths in CHAIN orientation (original=+1 convention:
+            # BASES when the state walks canonical-rightward, C_BASES else)
+            b = base[st_ids]
+            rel = np.where(sdir[st_ids] == 1, b, 3 - b).astype(np.int64)
+            dep = depth[st_ids]
 
-        off = np.zeros(n_chains + 1, np.int64)
-        np.cumsum(L_chain, out=off[1:])
-        body_codes = native._huge_empty(off[-1], np.int64)
-        body_codes.fill(0)
-        body_deps = native._huge_empty(off[-1], np.int64)
-        body_deps.fill(0)
-        body_codes[off[cid] + pos] = rel
-        body_deps[off[cid] + pos] = dep
-        _t("body scatters")
+            off = np.zeros(n_chains + 1, np.int64)
+            np.cumsum(L_chain, out=off[1:])
+            body_codes = native._huge_empty(off[-1], np.int64)
+            body_codes.fill(0)
+            body_deps = native._huge_empty(off[-1], np.int64)
+            body_deps.fill(0)
+            body_codes[off[cid] + pos] = rel
+            body_deps[off[cid] + pos] = dep
 
-        # reference seed of each chain = the member node first in slot
-        # order (read_out_contig scan order, contig.cpp:930): the k
-        # average-depth bytes sit at the seed's k-mer position and the
-        # output strand is the seed's canonical frame.  prio is unique per
-        # node and each node appears once per chain, so the first-lowest-
-        # index tie rule matches a stable lexsort pick.
-        am = native.seg_argmin(cid, g.prio[node[st_ids]], n_chains)
-        seed_state = st_ids[am]                        # [n_chains]
-        seed_pos = pos[am]
-        _t("seed argmin")
+        with _step(_RO, "seed argmin"):
+            # reference seed of each chain = the member node first in slot
+            # order (read_out_contig scan order, contig.cpp:930): the k
+            # average-depth bytes sit at the seed's k-mer position and the
+            # output strand is the seed's canonical frame.  prio is unique
+            # per node and each node appears once per chain, so the
+            # first-lowest-index tie rule matches a stable lexsort pick.
+            am = native.seg_argmin(cid, g.prio[node[st_ids]], n_chains)
+            seed_state = st_ids[am]                        # [n_chains]
+            seed_pos = pos[am]
 
-        hrev = head_states ^ 1
-        # left-boundary char/depth in chain orientation: rev(head) emits
-        # BASES in ITS walk frame; complement when the head itself walks
-        # canonical-leftward
-        lb = base[hrev]
-        bchar = np.where(head_dir == 1, BASES[lb], C_BASES[lb])
-        bdep = depth[hrev]
-        head_node = node[head_states]
-        # header boundary info: left = rev(head) stop, right = end stop;
-        # no node is deleted while the chains are written
-        ln_ids, ln_dirs = states_next(head_states ^ 1)
-        rn_ids, rn_dirs = states_next(e[head_states])
-        for c in range(n_chains):
-            L = int(L_chain[c])
-            o = int(off[c])
-            codes = body_codes[o:o + L]
-            deps = body_deps[o:o + L]
-            total_dep = int(deps.sum()) + int(bdep[c])
-            avg = total_dep / (L + 1)
-            kmer_str = bit2seq(int(g.kmers[head_node[c]]), k).encode()
-            if head_dir[c] != 1:
-                kmer_str = _revcomp_bytes(kmer_str)
-            chain_chars = BASES[codes].tobytes()
-            seq = bytes([int(bchar[c])]) + kmer_str + chain_chars
-            dv = int(avg) & 0xFF
-            if dv in (10, 62):
-                dv -= 1
-            mid = bytes([dv] * k)
-            # edge-depth bytes in chain orientation: left boundary + one
-            # per state; avg block inserted at the seed position (edge
-            # counters are symmetric by construction — each adjacency
-            # event increments both end nodes' counters, DBGgraph.cpp:93-96)
-            eflat = np.concatenate([[int(bdep[c])], deps])
-            eadj = _adjust_depth_bytes(eflat).tobytes()
-            q = int(seed_pos[c])
-            dbytes = eadj[:q + 1] + mid + eadj[q + 1:]
-            lkm, lmark, lrep = _boundary_info(g, int(ln_ids[c]),
-                                              int(ln_dirs[c]))
-            rkm, rmark, rrep = _boundary_info(g, int(rn_ids[c]),
-                                              int(rn_dirs[c]))
-            if sdir[seed_state[c]] != 1:
-                # the seed walks canonical-leftward on this chain: the
-                # reference emits the reverse-complement frame
-                seq = _revcomp_bytes(seq)
-                dbytes = dbytes[::-1]
-                lkm, lmark, lrep, rkm, rmark, rrep = \
-                    rkm, rmark, rrep, lkm, lmark, lrep
-            ctype = "RepeatNode" if (lrep == "Repeat"
-                                     and rrep == "Repeat") else ""
-            header = (f"\tlength: {len(seq)}"
-                      f"\tavgDepth: {statio.fmt_lexical(avg)}"
-                      f"\tLeftEndKmer: {lkm} {lmark}-{lrep}"
-                      f"\tRightEndKmer: {rkm} {rmark}-{rrep}"
-                      f"\t{ctype}\n")
-            recs.append((seq, dbytes, header))
-        _t("chain loop")
+        with _step(_RO, "chain loop"):
+            hrev = head_states ^ 1
+            # left-boundary char/depth in chain orientation: rev(head) emits
+            # BASES in ITS walk frame; complement when the head itself walks
+            # canonical-leftward
+            lb = base[hrev]
+            bchar = np.where(head_dir == 1, BASES[lb], C_BASES[lb])
+            bdep = depth[hrev]
+            head_node = node[head_states]
+            # header boundary info: left = rev(head) stop, right = end stop;
+            # no node is deleted while the chains are written
+            ln_ids, ln_dirs = states_next(head_states ^ 1)
+            rn_ids, rn_dirs = states_next(e[head_states])
+            for c in range(n_chains):
+                L = int(L_chain[c])
+                o = int(off[c])
+                codes = body_codes[o:o + L]
+                deps = body_deps[o:o + L]
+                total_dep = int(deps.sum()) + int(bdep[c])
+                avg = total_dep / (L + 1)
+                kmer_str = bit2seq(int(g.kmers[head_node[c]]), k).encode()
+                if head_dir[c] != 1:
+                    kmer_str = _revcomp_bytes(kmer_str)
+                chain_chars = BASES[codes].tobytes()
+                seq = bytes([int(bchar[c])]) + kmer_str + chain_chars
+                dv = int(avg) & 0xFF
+                if dv in (10, 62):
+                    dv -= 1
+                mid = bytes([dv] * k)
+                # edge-depth bytes in chain orientation: left boundary +
+                # one per state; avg block inserted at the seed position
+                # (edge counters are symmetric by construction — each
+                # adjacency event increments both end nodes' counters,
+                # DBGgraph.cpp:93-96)
+                eflat = np.concatenate([[int(bdep[c])], deps])
+                eadj = _adjust_depth_bytes(eflat).tobytes()
+                q = int(seed_pos[c])
+                dbytes = eadj[:q + 1] + mid + eadj[q + 1:]
+                lkm, lmark, lrep = _boundary_info(g, int(ln_ids[c]),
+                                                  int(ln_dirs[c]))
+                rkm, rmark, rrep = _boundary_info(g, int(rn_ids[c]),
+                                                  int(rn_dirs[c]))
+                if sdir[seed_state[c]] != 1:
+                    # the seed walks canonical-leftward on this chain: the
+                    # reference emits the reverse-complement frame
+                    seq = _revcomp_bytes(seq)
+                    dbytes = dbytes[::-1]
+                    lkm, lmark, lrep, rkm, rmark, rrep = \
+                        rkm, rmark, rrep, lkm, lmark, lrep
+                ctype = "RepeatNode" if (lrep == "Repeat"
+                                         and rrep == "Repeat") else ""
+                header = (f"\tlength: {len(seq)}"
+                          f"\tavgDepth: {statio.fmt_lexical(avg)}"
+                          f"\tLeftEndKmer: {lkm} {lmark}-{lrep}"
+                          f"\tRightEndKmer: {rkm} {rmark}-{rrep}"
+                          f"\t{ctype}\n")
+                recs.append((seq, dbytes, header))
 
-    # ---- cycles + hairpins: exact serial walker in slot order
-    if fallback_nodes:
-        fb = np.asarray(sorted(fallback_nodes), np.int64)
-        fb = fb[np.argsort(g.prio[fb], kind="stable")]
-        for i in fb:
-            i = int(i)
-            if g.deleted[i] or not g.linear[i]:
-                continue
-            kmer_str = bit2seq(int(g.kmers[i]), k).encode()
-            (rlen, rdep, rstr, rlast, rmark, rdepths,
-             rrep) = _serial_get_linear_seq(g, i, 1)
-            (llen, ldep, lstr, llast, lmark, ldepths,
-             lrep) = _serial_get_linear_seq(g, i, -1)
-            ctype = "RepeatNode" if (lrep == "Repeat"
-                                     and rrep == "Repeat") else ""
-            g.deleted[i] = True
-            seq = lstr[::-1] + kmer_str + rstr
-            avg = (ldep + rdep) / (llen + rlen)
-            dv = int(avg) & 0xFF
-            if dv in (10, 62):
-                dv -= 1
-            dbytes = ldepths[::-1] + bytes([dv] * k) + rdepths
-            lkm = int(g.kmers[llast]) if llast < g.M else 0
-            rkm = int(g.kmers[rlast]) if rlast < g.M else 0
-            header = (f"\tlength: {len(seq)}"
-                      f"\tavgDepth: {statio.fmt_lexical(avg)}"
-                      f"\tLeftEndKmer: {lkm} {lmark}-{lrep}"
-                      f"\tRightEndKmer: {rkm} {rmark}-{rrep}"
-                      f"\t{ctype}\n")
-            recs.append((seq, dbytes, header))
+    with _step(_RO, "write files"):
+        # ---- cycles + hairpins: exact serial walker in slot order
+        if fallback_nodes:
+            fb = np.asarray(sorted(fallback_nodes), np.int64)
+            fb = fb[np.argsort(g.prio[fb], kind="stable")]
+            for i in fb:
+                i = int(i)
+                if g.deleted[i] or not g.linear[i]:
+                    continue
+                kmer_str = bit2seq(int(g.kmers[i]), k).encode()
+                (rlen, rdep, rstr, rlast, rmark, rdepths,
+                 rrep) = _serial_get_linear_seq(g, i, 1)
+                (llen, ldep, lstr, llast, lmark, ldepths,
+                 lrep) = _serial_get_linear_seq(g, i, -1)
+                ctype = "RepeatNode" if (lrep == "Repeat"
+                                         and rrep == "Repeat") else ""
+                g.deleted[i] = True
+                seq = lstr[::-1] + kmer_str + rstr
+                avg = (ldep + rdep) / (llen + rlen)
+                dv = int(avg) & 0xFF
+                if dv in (10, 62):
+                    dv -= 1
+                dbytes = ldepths[::-1] + bytes([dv] * k) + rdepths
+                lkm = int(g.kmers[llast]) if llast < g.M else 0
+                rkm = int(g.kmers[rlast]) if rlast < g.M else 0
+                header = (f"\tlength: {len(seq)}"
+                          f"\tavgDepth: {statio.fmt_lexical(avg)}"
+                          f"\tLeftEndKmer: {lkm} {lmark}-{lrep}"
+                          f"\tRightEndKmer: {rkm} {rmark}-{rrep}"
+                          f"\t{ctype}\n")
+                recs.append((seq, dbytes, header))
 
-    # ---- length-sorted output with odd ids (contig.cpp:1014-1046)
-    lens = np.array([len(r[0]) for r in recs], dtype=np.uint64)
-    perm = native.gcc44_sort_perm_desc(lens) if len(recs) else []
-    st = g.stats
-    with open(prefix + ".contig.seq.fa", "w") as ctg_f, \
-            open(prefix + ".contig.seq.depth", "wb") as ctg_d, \
-            open(prefix + ".contig.small.fa", "w") as small_f, \
-            open(prefix + ".contig.small.depth", "wb") as small_d:
-        contig_id = 1
-        for pi in perm:
-            seq, dbytes, header = recs[int(pi)]
-            name = f">ctg_{contig_id}"
-            if len(seq) >= p.contig_len_cutoff:
-                ctg_f.write(name + header + seq.decode() + "\n")
-                ctg_d.write(name.encode() + b"\n" + dbytes + b"\n")
-                st.contig_num += 1
-                st.contig_len += len(seq)
-            else:
-                small_f.write(name + header + seq.decode() + "\n")
-                small_d.write(name.encode() + b"\n" + dbytes + b"\n")
-                st.small_num += 1
-                st.small_len += len(seq)
-            contig_id += 2
-    _t("write files")
+        # ---- length-sorted output with odd ids (contig.cpp:1014-1046)
+        lens = np.array([len(r[0]) for r in recs], dtype=np.uint64)
+        perm = native.gcc44_sort_perm_desc(lens) if len(recs) else []
+        st = g.stats
+        with open(prefix + ".contig.seq.fa", "w") as ctg_f, \
+                open(prefix + ".contig.seq.depth", "wb") as ctg_d, \
+                open(prefix + ".contig.small.fa", "w") as small_f, \
+                open(prefix + ".contig.small.depth", "wb") as small_d:
+            contig_id = 1
+            for pi in perm:
+                seq, dbytes, header = recs[int(pi)]
+                name = f">ctg_{contig_id}"
+                if len(seq) >= p.contig_len_cutoff:
+                    ctg_f.write(name + header + seq.decode() + "\n")
+                    ctg_d.write(name.encode() + b"\n" + dbytes + b"\n")
+                    st.contig_num += 1
+                    st.contig_len += len(seq)
+                else:
+                    small_f.write(name + header + seq.decode() + "\n")
+                    small_d.write(name.encode() + b"\n" + dbytes + b"\n")
+                    st.small_num += 1
+                    st.small_len += len(seq)
+                contig_id += 2
     return st
 
 
@@ -1107,22 +1108,21 @@ def assemble_doubling(table: NodeTable, params: AssembleParams, prefix: str,
     pointer-doubling readout (phase order per contig.cpp:54-102), chains
     resolved on ``device``.  Writes the same eight artifacts as the exact
     readout."""
-    _t = _StepClock("  [pd]")
-    g = _Graph(table, params, device)
-    _t("graph init")
-    g.calc_links()
-    _t("calc_links")
-    g.write_kmer_freq(prefix + ".contig.kmer.freq")
-    _t("kmer.freq")
+    with _step(_PD, "graph init"):
+        g = _Graph(table, params, device)
+    with _step(_PD, "calc_links"):
+        g.calc_links()
+    with _step(_PD, "kmer.freq"):
+        g.write_kmer_freq(prefix + ".contig.kmer.freq")
     if params.is_remove_tip:
-        remove_tips(g, prefix + ".contig.tip.fa")
-        _t("tips")
+        with _step(_PD, "tips"):
+            remove_tips(g, prefix + ".contig.tip.fa")
     if params.is_remove_lowedge:
-        remove_lowedges(g, prefix + ".contig.lowedge.fa")
-        _t("lowedges")
+        with _step(_PD, "lowedges"):
+            remove_lowedges(g, prefix + ".contig.lowedge.fa")
     if params.is_remove_bubble:
-        remove_bubbles(g, prefix + ".contig.bubble.fa")
-        _t("bubbles")
-    read_out_contigs(g, prefix)
-    _t("readout")
+        with _step(_PD, "bubbles"):
+            remove_bubbles(g, prefix + ".contig.bubble.fa")
+    with _step(_PD, "readout"):
+        read_out_contigs(g, prefix)
     return g.stats

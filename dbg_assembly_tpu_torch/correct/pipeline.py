@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import dna, resolve_device
+from .. import dna, resolve_device, spans
 from ..io import cz as czio
 from ..io import fastq, stat as statio
 from ..kmer import count as kc
@@ -105,19 +105,23 @@ def correct_batch_torch(batch, bitmap: np.ndarray, p: CorrectParams,
         trs[off:end] = tr
         reads_mod[off:end] = am
         # host fallback for flagged rows, from the ORIGINAL read
-        for i in np.flatnonzero(fb):
-            gi = off + int(i)
-            L = int(lengths[gi])
-            read = bytearray(batch.seqs_ascii[gi, :L].tobytes())
-            corr = ReadCorrector(bitmap, p)
-            bits_i = classify_regions_batch(
-                batch.codes[gi:gi + 1], lengths[gi:gi + 1], bitmap,
-                p.ksize)[0]
-            (ones[gi], multis[gi], deleteds[gi], tls[gi],
-             trs[gi]) = corr.correct_one_read(
-                read, bits_i[:max(L - p.ksize + 1, 0)])
-            reads_mod[gi, :L] = np.frombuffer(bytes(read), np.uint8)
-            dev_engine.counts["fallback"] += 1
+        flagged = np.flatnonzero(fb)
+        if len(flagged) == 0:
+            continue
+        with spans.span("correct.fallback", rows=len(flagged)):
+            for i in flagged:
+                gi = off + int(i)
+                L = int(lengths[gi])
+                read = bytearray(batch.seqs_ascii[gi, :L].tobytes())
+                corr = ReadCorrector(bitmap, p)
+                bits_i = classify_regions_batch(
+                    batch.codes[gi:gi + 1], lengths[gi:gi + 1], bitmap,
+                    p.ksize)[0]
+                (ones[gi], multis[gi], deleteds[gi], tls[gi],
+                 trs[gi]) = corr.correct_one_read(
+                    read, bits_i[:max(L - p.ksize + 1, 0)])
+                reads_mod[gi, :L] = np.frombuffer(bytes(read), np.uint8)
+                dev_engine.counts["fallback"] += 1
     return ones, multis, deleteds, tls, trs, reads_mod
 
 
@@ -126,6 +130,47 @@ def _engine(requested: str = "auto") -> str:
     if requested not in ("auto", "torch", "native", "python"):
         raise ValueError(f"unknown correction engine {requested!r}")
     return "torch" if requested == "auto" else requested
+
+
+def _correct_rows(batch, bitmap: np.ndarray, p: CorrectParams, engine: str,
+                  mesh, device, words, chunk: int):
+    """(ones, multis, deleteds, left trims, right trims, corrected reads)
+    of every read of ``batch`` on the named engine."""
+    n = batch.n_reads
+    lengths = batch.lengths.astype(np.int64)
+    if engine == "torch" and n > 0:
+        # the torch engine classifies regions on the device (_stage_a) and
+        # its host fallback re-derives bits per flagged read
+        return correct_batch_torch(batch, bitmap, p, words=words,
+                                   chunk=chunk, device=device, mesh=mesh)
+    bits = None if engine == "torch" else classify_regions_batch(
+        batch.codes, batch.lengths, bitmap, p.ksize)
+    if engine == "native" and n > 0:
+        from .. import native as nat
+        Lmax = batch.seqs_ascii.shape[1]
+        flat = np.ascontiguousarray(batch.seqs_ascii).reshape(-1)
+        offsets = np.arange(n, dtype=np.int64) * Lmax
+        ones, multis, deleteds, tls, trs = nat.correct_batch(
+            flat, offsets, lengths.astype(np.int32), bits, bitmap, p)
+        return ones, multis, deleteds, tls, trs, flat.reshape(n, Lmax)
+    corr = ReadCorrector(bitmap, p)
+    ones = np.zeros(n, np.int32)
+    multis = np.zeros(n, np.int32)
+    deleteds = np.zeros(n, np.int32)
+    tls = np.zeros(n, np.int32)
+    trs = np.zeros(n, np.int32)
+    reads_mod = batch.seqs_ascii
+    for i in range(n):
+        L = int(lengths[i])
+        read = bytearray(batch.seqs_ascii[i, :L].tobytes())
+        if L >= p.ksize:
+            (ones[i], multis[i], deleteds[i], tls[i],
+             trs[i]) = corr.correct_one_read(
+                read, bits[i, :max(L - p.ksize + 1, 0)])
+        else:
+            deleteds[i] = 1
+        reads_mod[i, :L] = np.frombuffer(bytes(read), np.uint8)
+    return ones, multis, deleteds, tls, trs, reads_mod
 
 
 def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
@@ -143,12 +188,10 @@ def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
                              keep_ascii=True)
     n = batch.n_reads
     lengths = batch.lengths.astype(np.int64)
-    # the torch engine classifies regions on the device (_stage_a) and its
-    # host fallback re-derives bits per flagged read
-    bits = None
-    if engine != "torch":
-        bits = classify_regions_batch(batch.codes, batch.lengths, bitmap,
-                                      p.ksize)
+    with spans.span("correct.engine", reads=n):
+        (ones, multis, deleteds, tls, trs,
+         reads_mod) = _correct_rows(batch, bitmap, p, engine, mesh, device,
+                                    words, chunk)
 
     num_res_reads = 0
     num_res_bases = 0
@@ -157,67 +200,35 @@ def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
     num_deleted_reads = 0
     one_total = 0
     multi_total = 0
-
-    if engine == "native" and n > 0:
-        from .. import native as nat
-        Lmax = batch.seqs_ascii.shape[1]
-        flat = np.ascontiguousarray(batch.seqs_ascii).reshape(-1)
-        offsets = np.arange(n, dtype=np.int64) * Lmax
-        ones, multis, deleteds, tls, trs = nat.correct_batch(
-            flat, offsets, lengths.astype(np.int32), bits, bitmap, p)
-        reads_mod = flat.reshape(n, Lmax)
-    elif engine == "torch" and n > 0:
-        (ones, multis, deleteds, tls, trs,
-         reads_mod) = correct_batch_torch(batch, bitmap, p, words=words,
-                                          chunk=chunk, device=device,
-                                          mesh=mesh)
-    else:
-        corr = ReadCorrector(bitmap, p)
-        ones = np.zeros(n, np.int32)
-        multis = np.zeros(n, np.int32)
-        deleteds = np.zeros(n, np.int32)
-        tls = np.zeros(n, np.int32)
-        trs = np.zeros(n, np.int32)
-        reads_mod = batch.seqs_ascii
+    out = bytearray()
+    with spans.span("correct.format", records=n):
         for i in range(n):
             L = int(lengths[i])
-            read = bytearray(batch.seqs_ascii[i, :L].tobytes())
-            if L >= p.ksize:
-                (ones[i], multis[i], deleteds[i], tls[i],
-                 trs[i]) = corr.correct_one_read(
-                    read, bits[i, :max(L - p.ksize + 1, 0)])
+            head = batch.heads[i]
+            if fmt == 1 and head[:1] == b"@":
+                head = b">" + head[1:]
+            one, multi, deleted, tl, tr = (int(ones[i]), int(multis[i]),
+                                           int(deleteds[i]), int(tls[i]),
+                                           int(trs[i]))
+            score = one + multi
+            final_len = L - tl - tr
+            if not deleted:
+                one_total += one
+                multi_total += multi
+                read = reads_mod[i, tl:tl + final_len].tobytes()
+                if tl > 0 or tr > 0:
+                    num_trimmed_reads += 1
+                    num_trimmed_bases += tl + tr
+                num_res_reads += 1
+                num_res_bases += final_len
             else:
-                deleteds[i] = 1
-            reads_mod[i, :L] = np.frombuffer(bytes(read), np.uint8)
-
-    out = bytearray()
-    for i in range(n):
-        L = int(lengths[i])
-        head = batch.heads[i]
-        if fmt == 1 and head[:1] == b"@":
-            head = b">" + head[1:]
-        one, multi, deleted, tl, tr = (int(ones[i]), int(multis[i]),
-                                       int(deleteds[i]), int(tls[i]),
-                                       int(trs[i]))
-        score = one + multi
-        final_len = L - tl - tr
-        if not deleted:
-            one_total += one
-            multi_total += multi
-            read = reads_mod[i, tl:tl + final_len].tobytes()
-            if tl > 0 or tr > 0:
-                num_trimmed_reads += 1
-                num_trimmed_bases += tl + tr
-            num_res_reads += 1
-            num_res_bases += final_len
-        else:
-            num_deleted_reads += 1
-            read = b""
-        out += (head + f"\tModifiedBaseNum: {score}"
-                f"\tFinalReadLength: {len(read)}"
-                f"\tLeftEndTrim: {tl}\tRightEndTrim: {tr}"
-                f"\tIsDeleted: {deleted}".encode()
-                + b"\n" + read + b"\n")
+                num_deleted_reads += 1
+                read = b""
+            out += (head + f"\tModifiedBaseNum: {score}"
+                    f"\tFinalReadLength: {len(read)}"
+                    f"\tLeftEndTrim: {tl}\tRightEndTrim: {tr}"
+                    f"\tIsDeleted: {deleted}".encode()
+                    + b"\n" + read + b"\n")
 
     out_path = path + ".correct.fa.gz"
     fastq.gz_write_bytes(out_path, bytes(out))
@@ -249,12 +260,14 @@ def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
     dev = resolve_device(device) if engine == "torch" else None
     if params is None:
         params = CorrectParams()
-    bitmap = load_bitmap(cz_path, params.ksize)
+    with spans.span("correct.table_load"):
+        bitmap = load_bitmap(cz_path, params.ksize)
+        spans.add(bytes=bitmap.nbytes)
     words = None
-    if mesh is not None:
-        words = shard_bitmap(mesh, bitmap)
-    elif dev is not None:
-        words = dev_engine.bitmap_device(bitmap, dev)
+    if mesh is not None or dev is not None:
+        with spans.span("correct.table_upload", bytes=bitmap.nbytes):
+            words = (shard_bitmap(mesh, bitmap) if mesh is not None
+                     else dev_engine.bitmap_device(bitmap, dev))
     return [correct_file(path, bitmap, params, fmt, engine, mesh, dev,
                          words)
             for path in read_file_list(lib_path)]

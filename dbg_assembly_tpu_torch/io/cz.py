@@ -15,6 +15,8 @@ import zlib
 
 import numpy as np
 
+from .. import spans
+
 SRC_BLOCK_KMERS = 8 * 1024 * 1024      # 8M k-mers per compression block
 
 
@@ -23,15 +25,16 @@ def _write_blocks(path: str, table: np.ndarray, block_bytes: int,
     """Deflate ``table`` in source blocks of block_bytes into ``path`` and
     list each compressed block's size in ``path``.len."""
     sizes = []
-    with open(path, "wb") as f:
-        for off in range(0, len(table), block_bytes):
-            comp = zlib.compress(table[off:off + block_bytes].tobytes(),
-                                 level)
-            f.write(comp)
-            sizes.append(len(comp))
-    with open(path + ".len", "w") as f:
-        for s in sizes:
-            f.write(f"{s}\n")
+    with spans.span("io.cz_write", bytes=len(table)):
+        with open(path, "wb") as f:
+            for off in range(0, len(table), block_bytes):
+                comp = zlib.compress(table[off:off + block_bytes].tobytes(),
+                                     level)
+                f.write(comp)
+                sizes.append(len(comp))
+        with open(path + ".len", "w") as f:
+            for s in sizes:
+                f.write(f"{s}\n")
 
 
 def write_cz_bits(path: str, bitmap: np.ndarray, level: int = 1) -> None:
@@ -50,14 +53,15 @@ def write_cz_bytes(path: str, freqs: np.ndarray, level: int = 1) -> None:
 def _read_blocks(path: str, out: np.ndarray, block_bytes: int) -> np.ndarray:
     """Inflate each block listed in ``path``.len into ``out`` at
     block_bytes strides."""
-    with open(path + ".len") as f:
-        sizes = [int(x) for x in f.read().split()]
-    off = 0
-    with open(path, "rb") as f:
-        for s in sizes:
-            raw = zlib.decompress(f.read(s))
-            out[off:off + len(raw)] = np.frombuffer(raw, dtype=np.uint8)
-            off += block_bytes
+    with spans.span("io.cz_read", bytes=len(out)):
+        with open(path + ".len") as f:
+            sizes = [int(x) for x in f.read().split()]
+        off = 0
+        with open(path, "rb") as f:
+            for s in sizes:
+                raw = zlib.decompress(f.read(s))
+                out[off:off + len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+                off += block_bytes
     return out
 
 

@@ -25,7 +25,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import dna, native
+from .. import dna, native, spans
 
 
 @dataclass
@@ -122,32 +122,39 @@ def read_batch(path: str, fmt: str | None = None, strict_n: bool = False,
         base = path[:-3] if path.endswith(".gz") else path
         fmt = "fa" if base.endswith((".fa", ".fasta")) \
             or ".fa." in os.path.basename(path) else "fq"
-    with _open_maybe_gz(path) as f:
-        data = f.read()
-    if data[:1] == b">":
-        fmt = "fa"
-    elif data[:1] == b"@":
-        fmt = "fq"
-    if os.environ.get("DBG_PY_FASTQ") == "1":
-        return _parse_py(data, fmt, strict_n, max_len, keep_heads,
-                         keep_ascii)
-    codes, quals, lengths, hoff, hlen, aarr = native.fastq_parse(
-        data, fq=(fmt == "fq"), strict_n=strict_n, max_len=max_len,
-        keep_ascii=keep_ascii)
-    heads = [data[o:o + n] for o, n in zip(hoff.tolist(), hlen.tolist())] \
-        if keep_heads else []
-    return ReadBatch(codes=codes, quals=quals, lengths=lengths, heads=heads,
-                     seqs_ascii=aarr)
+    with spans.span("io.parse"):
+        with _open_maybe_gz(path) as f:
+            data = f.read()
+        if data[:1] == b">":
+            fmt = "fa"
+        elif data[:1] == b"@":
+            fmt = "fq"
+        if os.environ.get("DBG_PY_FASTQ") == "1":
+            batch = _parse_py(data, fmt, strict_n, max_len, keep_heads,
+                              keep_ascii)
+        else:
+            codes, quals, lengths, hoff, hlen, aarr = native.fastq_parse(
+                data, fq=(fmt == "fq"), strict_n=strict_n, max_len=max_len,
+                keep_ascii=keep_ascii)
+            heads = [data[o:o + n] for o, n in zip(hoff.tolist(),
+                                                   hlen.tolist())] \
+                if keep_heads else []
+            batch = ReadBatch(codes=codes, quals=quals, lengths=lengths,
+                              heads=heads, seqs_ascii=aarr)
+        spans.add(bytes=len(data), reads=batch.n_reads)
+    return batch
 
 
 def gz_write_bytes(path: str, data: bytes, level: int = 1) -> None:
     """One-shot gzip write, level 1 by default: the port's .gz artifacts
     are compared and consumed on their decompressed bytes, so the level
     only trades size for time."""
-    co = zlib.compressobj(level, zlib.DEFLATED, 31)
-    with open(path, "wb") as f:
-        f.write(co.compress(data))
-        f.write(co.flush())
+    with spans.span("io.gzip", bytes_in=len(data)):
+        co = zlib.compressobj(level, zlib.DEFLATED, 31)
+        with open(path, "wb") as f:
+            f.write(co.compress(data))
+            f.write(co.flush())
+            spans.add(bytes_out=f.tell())
 
 
 def write_fastq_gz(path: str, heads: list, seqs: list, quals: list,

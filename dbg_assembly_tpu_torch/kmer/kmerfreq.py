@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import spans
 from ..io import cz as czio
 from ..io import fastq, stat as statio
 from . import count as kc
@@ -81,24 +82,32 @@ def run(lib_path: str, ksize: int = 17, low_freq_cutoff: int = 1,
         batch = fastq.read_batch(path, fmt=fmt, keep_heads=False)
         codes, lens = batch.codes, batch.lengths
         if qual_cutoff > 0 and batch.quals.any():
-            codes, lens = split_reads_by_quality(
-                codes, lens, batch.quals, ksize, qual_cutoff, qual_shift)
+            with spans.span("kmerfreq.qsplit", reads=len(lens)):
+                codes, lens = split_reads_by_quality(
+                    codes, lens, batch.quals, ksize, qual_cutoff, qual_shift)
+                spans.add(segments=len(lens))
         if len(codes):
-            counter.add(codes, lens)
-    uniq, counts, total = counter.finalize()
+            windows = int(np.maximum(lens.astype(np.int64) - ksize + 1,
+                                     0).sum())
+            with spans.span("kmerfreq.count", windows=windows):
+                counter.add(codes, lens)
+    with spans.span("kmerfreq.finalize"):
+        uniq, counts, total = counter.finalize()
 
-    if table_format == "8bit":
-        freqs = np.zeros(1 << (2 * ksize), dtype=np.uint8)
-        freqs[uniq.astype(np.int64)] = np.minimum(counts, 255)
-        czio.write_cz_bytes(prefix + ".cz", freqs)
-        bitmap = None
-    else:
-        bitmap = kc.freq_bitmap(uniq, counts, ksize, low_freq_cutoff)
-        czio.write_cz_bits(prefix + ".cz", bitmap)
+    with spans.span("kmerfreq.table_write"):
+        if table_format == "8bit":
+            freqs = np.zeros(1 << (2 * ksize), dtype=np.uint8)
+            freqs[uniq.astype(np.int64)] = np.minimum(counts, 255)
+            czio.write_cz_bytes(prefix + ".cz", freqs)
+            bitmap = None
+        else:
+            bitmap = kc.freq_bitmap(uniq, counts, ksize, low_freq_cutoff)
+            czio.write_cz_bits(prefix + ".cz", bitmap)
 
-    spec = kc.spectrum(counts, max_freq=65535)
-    statio.write_kmerfreq_stat(prefix + ".stat", ksize, 65535, int(total),
-                               len(uniq), 1 << (2 * ksize), spec)
+        spec = kc.spectrum(counts, max_freq=65535)
+        statio.write_kmerfreq_stat(prefix + ".stat", ksize, 65535,
+                                   int(total), len(uniq), 1 << (2 * ksize),
+                                   spec)
     return {"cz": prefix + ".cz", "stat": prefix + ".stat",
             "species": len(uniq), "individuals": int(total),
             "bitmap": bitmap}
