@@ -236,6 +236,11 @@ def test_chain_spans(library, tmp_path):
                           "io.cz_write"}
     by = {r.name: r for r in kf}
     assert by["io.cz_write"].parent == by["kmerfreq.table_write"].index
+    # the 4^13 / 8 = 8 MiB table in blocks of 1 MiB, on a pool of threads
+    # that opens no span
+    assert by["io.cz_write"].counts["blocks"] == 8
+    assert by["io.cz_write"].counts["workers"] >= 1
+    assert {r.thread for r in kf} == {kf[0].thread}
     parses = [r for r in kf if r.name == "io.parse"]
     assert len(parses) == 2 and all(r.counts["reads"] > 0
                                     and r.counts["bytes"] > 0
@@ -255,6 +260,9 @@ def test_chain_spans(library, tmp_path):
     by = {r.name: r for r in co}
     assert by["io.cz_read"].parent == by["correct.table_load"].index
     assert by["correct.table_load"].counts["bytes"] == 4 ** 13 // 8
+    assert by["io.cz_read"].counts["blocks"] == 8
+    assert by["io.cz_read"].counts["workers"] >= 1
+    assert {r.thread for r in co} == {co[0].thread}
     gz = [r for r in co if r.name == "io.gzip"]
     assert len(gz) == 2 and all(0 < r.counts["bytes_out"]
                                 < r.counts["bytes_in"] for r in gz)
