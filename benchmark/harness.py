@@ -1,14 +1,56 @@
 """One run of one cell: set-up, the timed window of passes, the check, the
 result line.
 
-Everything a cell needs is found by name: the cell in BENCHMARK.json, its
-configuration file (the entry's ``file``), its traffic mix
-(``traffic/<traffic>.json``: the libraries it takes, the stage chain, the
-warm-up slice and any arguments the warm-up adds, the check's sample),
-each metric's reader (``metrics/<metric>.py``) and each stage's checker
-(``checks.CHECKS``, by command).  A pass runs the chain once over the whole input, every command
-in process through the port's ``cli.main`` with the upstream's options, in
-a directory of its own.
+Everything a cell needs is found by name, so that a cell, a traffic mix, a
+configuration, a metric or a checker is added as new files and entries
+alone:
+
+- the cell: an entry of ``workloads`` in BENCHMARK.json;
+- its configuration: the file its ``configs`` entry names, with the
+  genome and ``libraries`` (each ``name``, ``read_len``, ``insert``,
+  ``depth``);
+- its traffic mix, ``traffic/<traffic>.json``:
+  ``libraries`` ("all", "first" or a list of names) that the inputs hold;
+  ``stages``, the timed chain, each ``{"span", "command", "args"}``, with
+  ``"per_file": true`` to run once an input file; ``setup`` (optional),
+  stages in the same format run once, on the whole input, before the
+  warm-up; ``lists`` (optional), ``{file name: [line, ...]}``, files the
+  harness writes beside the inputs; ``warmup_reads``, the reads a file of
+  the warm-up's slice; ``warmup_args`` (optional), ``{command: [arg,
+  ...]}`` appended to the warm-up's commands alone (a flag given again
+  overrides the traffic's); ``soil`` (optional, gen.soil); ``check``
+  (what the checkers sample);
+- each metric's reader: ``metrics/<metric>.py``, ``read(ctx)``, which
+  returns None where it finds nothing to read; the device is traced over
+  the window of a traced run, and of an untraced one where an end-to-end
+  metric of the cell has the source ``device_trace``;
+- each stage command's checker, set-up stages' too:
+  ``checkers/<command>.py``, ``check(argv, run, state)`` (checks.py).  A
+  command with no checker stops the run before it starts.
+
+A chain runs in a directory of its own (set-up's, the warm-up's, each
+pass's), every command in process through the port's ``cli.main`` with
+the upstream's options and ``--device``, so that what a command writes
+beside its inputs lands there.  The directory holds links to the inputs
+and, but in set-up's, to what set-up wrote; ``reads.lib``, every input
+file; ``<library>.pair.lib``, each library's two files; and the traffic's
+lists.  Set-up runs once, its time counted in ``setup_s``; a pass runs
+the timed chain once over the whole input.  Once the window has closed,
+every pass's files (by digest, each file's own directory read as
+``{work}``) are held to the last pass's, then set-up's stages and the last
+pass's, in turn, to their checkers, which share one ``state``.
+
+Templates, ``{key}`` in ``args`` and in the lines of lists:
+
+    {work}            the chain's directory
+    {lib}             {work}/reads.lib
+    {read_len}        the longest read of the traffic's libraries
+    {file}            the input file of a per_file stage
+    {lib.NAME}        {work}/NAME.pair.lib, library NAME's two files
+    {insert.NAME}     library NAME's insert
+    {read_len.NAME}   library NAME's read length
+
+for NAME each library the traffic takes, whatever its name.
 """
 
 from __future__ import annotations
@@ -17,6 +59,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -53,14 +96,25 @@ def load_cell(name: str, root: str = ROOT):
     return manifest, cell, config, traffic
 
 
-def metric_reader(name: str, root: str = ROOT, bench: str = BENCH):
-    """The ``read(ctx)`` of metrics/<name>.py."""
-    path = os.path.join(bench, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
+def _load(path: str, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, root: str = ROOT, bench: str = BENCH):
+    """The ``read(ctx)`` of metrics/<name>.py."""
+    return _load(os.path.join(bench, "metrics", name + ".py"),
+                 "bench_metric_" + name.replace(".", "_")).read
+
+
+def checker(command: str, bench: str = BENCH):
+    """The ``check(argv, run, state)`` of checkers/<command>.py."""
+    path = os.path.join(bench, "checkers", command + ".py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"no check for command {command!r}")
+    return _load(path, "bench_checker_" + command).check
 
 
 def cell_metrics(manifest: dict, cell: str, trace: bool) -> list:
@@ -90,8 +144,8 @@ class Context:
     trace: dict | None = None
     work: dict = field(default_factory=dict)
     peak_bytes: int = 0
-    pass_files: list = field(default_factory=list)
-    scratch: str = ""
+    pass_files: list = field(default_factory=list)  # the checked chain's
+    scratch: str = ""                                # input links
 
     def span_median(self, name: str):
         vals = [p["spans"][name] for p in self.passes if name in p["spans"]]
@@ -124,41 +178,90 @@ def _counters(mods: dict) -> dict:
     return out
 
 
-def _pass_dir(where: str, files: list) -> tuple[list, str]:
-    """A directory with links to the inputs and a .lib listing them, so
-    that what a command writes beside its inputs lands there."""
-    os.makedirs(where)
-    links = []
-    for path in files:
-        link = os.path.join(where, os.path.basename(path))
-        os.symlink(os.path.abspath(path), link)
-        links.append(link)
-    lib = os.path.join(where, "reads.lib")
-    with open(lib, "w") as f:
-        f.write("".join(p + "\n" for p in links))
-    return links, lib
+TEMPLATE = re.compile(r"\{([^{}]*)\}")
 
 
-def stage_argvs(traffic: dict, config: dict, work: str, files: list,
-                lib: str, device: str, extra: dict | None = None) -> list:
-    """(span, command, argv) of each command of the chain, in order; a
-    stage with "per_file" runs once a file, {file} its input.  extra
-    appends arguments to a command (the controls: a flag given again
-    overrides the traffic's)."""
+def expand(text: str, env: dict) -> str:
+    """``text`` with each ``{key}`` replaced by env's value."""
+    def one(m):
+        if m.group(1) not in env:
+            raise SystemExit(f"no template key {m.group(1)!r} in {text!r}; "
+                             "keys: " + " ".join(sorted(env)))
+        return str(env[m.group(1)])
+    return TEMPLATE.sub(one, text)
+
+
+def template_env(config: dict, traffic: dict, work: str) -> dict:
+    """The template keys of a chain's directory ``work``, but {file}."""
     wanted = gen.select_libraries(config, traffic)
-    read_len = max(int(x["read_len"]) for x in config["libraries"]
-                   if x["name"] in wanted)
+    libs = [x for x in config["libraries"] if x["name"] in wanted]
+    env = {"work": work, "lib": os.path.join(work, "reads.lib"),
+           "read_len": max(int(x["read_len"]) for x in libs)}
+    for x in libs:
+        env["lib." + x["name"]] = os.path.join(work, x["name"] + ".pair.lib")
+        env["insert." + x["name"]] = int(x["insert"])
+        env["read_len." + x["name"]] = int(x["read_len"])
+    return env
+
+
+def stage_argvs(stages: list, env: dict, files: list, device: str,
+                extra: dict | None = None) -> list:
+    """(span, command, argv) of each command of ``stages``, in order; a
+    stage with "per_file" runs once a file of ``files``, {file} its input.
+    extra appends arguments to a command (the warm-up's and the controls':
+    a flag given again overrides the traffic's)."""
     out = []
-    for stage in traffic["stages"]:
+    for stage in stages:
         for path in (files if stage.get("per_file") else [None]):
-            env = {"lib": lib, "work": work, "read_len": read_len,
-                   "file": path}
-            argv = [a.format_map(env) for a in stage["args"]]
+            argv = [expand(a, dict(env, file=path)) for a in stage["args"]]
             more = list((extra or {}).get(stage["command"], []))
             out.append((stage["span"], stage["command"],
                         [stage["command"], *argv, *more, "--device",
                          device]))
     return out
+
+
+@dataclass
+class StageDir:
+    """The directory a chain runs in."""
+    path: str
+    links: list        # the input files' links, in library order
+    env: dict          # the template keys but {file}
+    own: set           # names the harness put there
+
+    def argvs(self, stages: list, device: str, extra=None) -> list:
+        return stage_argvs(stages, self.env, self.links, device, extra)
+
+
+def _link(path: str, where: str) -> str:
+    link = os.path.join(where, os.path.basename(path))
+    os.symlink(os.path.abspath(path), link)
+    return link
+
+
+def _write_lines(path: str, lines: list) -> None:
+    with open(path, "x") as f:       # never through a link, never twice
+        f.write("".join(x + "\n" for x in lines))
+
+
+def stage_dir(where: str, files: list, names: list, config: dict,
+              traffic: dict, made: list = ()) -> StageDir:
+    """Make ``where``: links to the input ``files`` (each the (library,
+    mate) of ``names``) and to set-up's outputs ``made``, reads.lib,
+    <library>.pair.lib each library's, and the traffic's lists."""
+    os.makedirs(where)
+    links = [_link(path, where) for path in files]
+    for path in made:
+        _link(path, where)
+    env = template_env(config, traffic, where)
+    _write_lines(env["lib"], links)
+    for name in gen.select_libraries(config, traffic):
+        _write_lines(env["lib." + name], [
+            x for x, (lib, _) in zip(links, names) if lib == name])
+    for name, lines in traffic.get("lists", {}).items():
+        _write_lines(os.path.join(where, name),
+                    [expand(x, env) for x in lines])
+    return StageDir(where, links, env, set(os.listdir(where)))
 
 
 def run_chain(cli, argvs: list, log, sync) -> list:
@@ -200,50 +303,47 @@ def banned_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(BANNED))
 
 
-def _window(cli, mods, ctx, traffic, config, tmp, device, seconds, log,
-            sync, control):
+def _window(cli, mods, ctx, make_pass, stages, device, seconds, log, sync,
+            control):
     """Passes back to back: the first always, a further one while the
     time used plus the last pass's wall stays within ``seconds``.  Returns
-    each pass's (directory, input links, argvs as the traffic gives
-    them)."""
+    each pass's StageDir."""
     t_window = time.perf_counter()
     dirs = []
     while True:
         _reset(mods)
-        pdir = os.path.join(tmp, f"pass{len(dirs)}")
-        links, lib = _pass_dir(pdir, ctx.inputs["files"])
+        d = make_pass(os.path.join(ctx.scratch, f"pass{len(dirs)}"))
         t = time.perf_counter()
-        spans_at = run_chain(cli, stage_argvs(traffic, config, pdir, links,
-                                              lib, device, control),
-                             log, sync)
+        spans_at = run_chain(cli, d.argvs(stages, device, control), log,
+                             sync)
         wall = time.perf_counter() - t
         spans: dict = {}
         for span, sec in spans_at:                # a span over every file
             spans[span] = spans.get(span, 0.0) + sec
         ctx.passes.append({"wall": wall, "start": t, "spans": spans,
                            "spans_at": spans_at, "counters": _counters(mods)})
-        dirs.append((pdir, links,
-                     stage_argvs(traffic, config, pdir, links, lib, device)))
+        dirs.append(d)
         if time.perf_counter() - t_window + wall > seconds:
             return dirs, time.perf_counter() - t_window
 
 
-def _check(ctx, dirs) -> dict:
-    """name -> (number, limit): the last pass against the reference, the
-    others against the last."""
-    last_dir, last_links, last_argvs = dirs[-1]
-    ctx.pass_files = last_links
-    want = checks.digests(last_dir)
+def _check(ctx, dirs: list, chains: list, checkers: dict,
+           device: str) -> dict:
+    """name -> (number, limit): the passes against the last by digest;
+    then each chain of ``chains``, (StageDir, stages) in turn (set-up's,
+    then the last pass's), against the reference."""
+    last = dirs[-1]
+    want = checks.digests(last.path, last.own)
     compared = {"passes_differ": (
-        sum(checks.digests(d) != want for d, _, _ in dirs[:-1]), 0)}
+        sum(checks.digests(d.path, d.own) != want for d in dirs[:-1]), 0)}
     state: dict = {}
-    for _, command, argv in last_argvs:
-        checker = checks.CHECKS.get(command)
-        if checker is None:
-            raise SystemExit(f"no check for command {command!r}")
-        # the checker sees the command's own flags, not "--device <dev>"
-        for key, (val, lim) in checker(argv[1:-2], ctx, state).items():
-            compared[key] = (compared.get(key, (0, lim))[0] + val, lim)
+    for d, stages in chains:
+        ctx.pass_files = d.links
+        for _, command, argv in d.argvs(stages, device):
+            # the checker sees the command's own flags, not "--device <dev>"
+            for key, (val, lim) in checkers[command](argv[1:-2], ctx,
+                                                     state).items():
+                compared[key] = (compared.get(key, (0, lim))[0] + val, lim)
     return compared
 
 
@@ -261,6 +361,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     (the controls' tests only): arguments appended to commands of the
     timed passes, which the check does not see."""
     manifest, _, config, traffic = load_cell(name, root)
+    setup, stages = traffic.get("setup", []), traffic["stages"]
+    checkers = {s["command"]: checker(s["command"], bench)
+                for s in setup + stages}
     cli, mods = _program()
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -277,29 +380,44 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                                  os.path.join(tmp, "inputs"), dev)
         ctx = Context(dev, seed, inputs, traffic.get("check", {}),
                       scratch=tmp)
-        # warm-up: the whole chain on a slice of the same reads, so that
-        # the kernels are built and loaded and the context is up;
-        # "warmup_args" appends arguments to a command of the warm-up
-        # alone (a flag given again overrides the traffic's)
+
+        def make_dir(where, files, made=()):
+            return stage_dir(where, files, inputs["names"], config, traffic,
+                             made)
+        # set-up: its stages once, on the whole input; what they write
+        # appears in the warm-up's and every pass's directory
+        chains, made = [], []
+        if setup:
+            sdir = make_dir(os.path.join(tmp, "setup"), inputs["files"])
+            run_chain(cli, sdir.argvs(setup, device), log, sync)
+            made = [os.path.join(sdir.path, n)
+                    for n in sorted(set(os.listdir(sdir.path)) - sdir.own)]
+            chains.append((sdir, setup))
+        # warm-up: the timed chain on a slice of the same reads, so that
+        # the kernels are built and loaded and the context is up
         wfiles = _slice_inputs(inputs, int(traffic["warmup_reads"]),
                                os.path.join(tmp, "warm_inputs"))
-        wdir = os.path.join(tmp, "warm")
-        wlinks, wlib = _pass_dir(wdir, wfiles)
-        run_chain(cli, stage_argvs(traffic, config, wdir, wlinks, wlib,
-                                   device, traffic.get("warmup_args")),
+        wdir = make_dir(os.path.join(tmp, "warm"), wfiles, made)
+        run_chain(cli, wdir.argvs(stages, device, traffic.get("warmup_args")),
                   log, sync)
-        shutil.rmtree(wdir)
+        shutil.rmtree(wdir.path)
         card = power_limit() if cuda else "cpu"
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         ctx.setup_s = time.perf_counter() - t_start
 
-        prof = tracemod.Tracer() if trace else None
+        # the profiler runs in a traced run, and in an untraced one where
+        # an end-to-end metric of the cell is read from the device's trace
+        traced = trace or any(m["source"] == "device_trace" for m in
+                              cell_metrics(manifest, name, False))
+        prof = tracemod.Tracer() if traced else None
         if prof is not None:
             prof.start()
-        dirs, window_s = _window(cli, mods, ctx, traffic, config, tmp,
-                                 device, seconds, log, sync, control)
+        dirs, window_s = _window(
+            cli, mods, ctx, lambda where: make_dir(where, inputs["files"],
+                                                   made),
+            stages, device, seconds, log, sync, control)
         if prof is not None:
             ctx.trace = prof.stop(window_s, ctx.passes)
         if cuda:
@@ -313,11 +431,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.empty_cache()
         t_check = time.perf_counter()
-        compared = _check(ctx, dirs)
+        compared = _check(ctx, dirs, chains + [(dirs[-1], stages)],
+                          checkers, device)
         check_s = time.perf_counter() - t_check
         if trace:
-            ctx.work = tracemod.kmer_work(inputs, [a for _, _, a in
-                                                   dirs[-1][2]], dev)
+            ctx.work = tracemod.kmer_work(
+                inputs, [a for _, _, a in dirs[-1].argvs(stages, device)],
+                dev)
         correct = all(v <= lim for v, lim in compared.values())
 
         metrics = {}
@@ -336,7 +456,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                        "count": 1, "memory_peak_bytes": ctx.peak_bytes,
                        "card": card},
         }
-        if ctx.trace is not None:
+        if trace:
             result["device"]["busy_s"] = ctx.trace["busy_s"]
             result["device"]["window_s"] = ctx.trace["window_s"]
             result["breakdown"] = ctx.trace["breakdown"]

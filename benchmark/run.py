@@ -3,13 +3,14 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-Makes the cell's inputs on the card from the seed, warms up on a slice of
-them, runs passes of the cell's stage chain back to back for the window,
-checks the last pass against the plain reference, and prints one JSON
-line last on standard output; the numbers compared, each beside its
-limit, are the last lines of standard error.  Exits non-zero, with no
-result, where torch finds no card (or fewer than the cell asks for), or
-where JAX or the JAX package was loaded.
+Makes the cell's inputs on the card from the seed, runs the traffic's
+set-up stages on them once, warms up on a slice of them, runs passes of
+the cell's stage chain back to back for the window, checks set-up and the
+last pass against the plain reference, and prints one JSON line last on
+standard output; the numbers compared, each beside its limit, are the last
+lines of standard error.  Exits non-zero, with no result, where torch
+finds no card (or fewer than the cell asks for), or where JAX or the JAX
+package was loaded.
 """
 
 import os

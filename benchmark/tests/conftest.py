@@ -61,13 +61,14 @@ def tiny_cells() -> dict:
 
 def make_root(where: str, cells: dict) -> tuple[str, str]:
     """A benchmark root under ``where`` holding ``cells`` (name ->
-    (config, traffic)) and the real metric readers; returns (root,
-    benchmark folder)."""
+    (config, traffic)) and the real metric readers and checkers; returns
+    (root, benchmark folder)."""
     bench = os.path.join(where, "benchmark")
     os.makedirs(os.path.join(bench, "configs"))
     os.makedirs(os.path.join(bench, "traffic"))
-    shutil.copytree(os.path.join(BENCH, "metrics"),
-                    os.path.join(bench, "metrics"))
+    for sub in ("metrics", "checkers"):
+        shutil.copytree(os.path.join(BENCH, sub), os.path.join(bench, sub),
+                        ignore=shutil.ignore_patterns("__pycache__"))
     manifest = _load("..", "BENCHMARK.json")
     manifest["configs"], manifest["workloads"] = [], []
     seen = set()
@@ -88,6 +89,12 @@ def make_root(where: str, cells: dict) -> tuple[str, str]:
              "chips": 1, "why": "test"})
     for m in manifest["per_layer"]:
         m["workloads"] = list(cells)
+    # every tiny cell reports the end-to-end metrics the CPU can read: not
+    # those of the device's trace
+    manifest["end_to_end"] = [m for m in manifest["end_to_end"]
+                              if m["source"] != "device_trace"]
+    for m in manifest["end_to_end"]:
+        m.pop("workloads", None)
     with open(os.path.join(where, "BENCHMARK.json"), "w") as f:
         json.dump(manifest, f)
     return where, bench

@@ -55,6 +55,188 @@ def test_new_mix_config_and_metric_are_files_only(tmp_path, run_tiny):
     assert harness.metric_reader("pass_count", root, bench)(ctx) == 1
 
 
+def test_device_trace_metric_traces_an_untraced_run(tmp_path, run_tiny,
+                                                    monkeypatch):
+    """An end-to-end metric read from the device's trace has the profiler
+    run over the window of an untraced run, whose line still carries no
+    busy_s, window_s or breakdown; a cell without one is not traced."""
+    from benchmark import harness, trace
+    started = []
+
+    class FakeTracer:
+        def start(self):
+            started.append(1)
+            self.t0 = __import__("time").perf_counter()
+
+        def stop(self, window_s, passes):
+            return trace.summarise([("k", self.t0, self.t0 + 0.25)],
+                                   (self.t0, self.t0 + window_s), passes)
+    monkeypatch.setattr(trace, "Tracer", FakeTracer)
+    config, traffic = tiny_cells()["tiny.clean"]
+    cells = {"x.a": (config, traffic), "x.b": (config, traffic)}
+    root, bench = make_root(str(tmp_path / "x"), cells)
+    with open(os.path.join(bench, "metrics", "card_busy.py"), "w") as f:
+        f.write("def read(ctx):\n    return ctx.trace['busy_s']\n")
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        manifest = json.load(f)
+    manifest["end_to_end"].append(
+        {"name": "card_busy", "unit": "s", "better": "lower", "bound": 0.01,
+         "source": "device_trace", "workloads": ["x.a"]})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(manifest, f)
+    r = run_tiny("x.a", trace=False, root_bench=(root, bench))
+    assert r["correct"] and started == [1]
+    assert r["metrics"]["card_busy"]["value"] == 0.25
+    assert not {"busy_s", "window_s"} & set(r["device"])
+    assert "breakdown" not in r
+    r = run_tiny("x.b", trace=False, root_bench=(root, bench))
+    assert started == [1] and "card_busy" not in r["metrics"]
+
+
+def _spy_checkers(mp):
+    """Record (command, argv) of each checker call of a run."""
+    from benchmark import harness
+    calls = []
+    real = harness.checker
+
+    def counting(command, bench=harness.BENCH):
+        check = real(command, bench)
+
+        def spy(argv, run, state):
+            calls.append((command, list(argv)))
+            return check(argv, run, state)
+        return spy
+    mp.setattr(harness, "checker", counting)
+    return calls
+
+
+def _spy_passes(mp):
+    """The run's Context, as the window fills it."""
+    from benchmark import harness
+    seen = []
+    real = harness._window
+
+    def window(cli, mods, ctx, *a):
+        seen.append(ctx)
+        return real(cli, mods, ctx, *a)
+    mp.setattr(harness, "_window", window)
+    return seen
+
+
+def _setup_table_mix():
+    """tiny.correct with kmerfreq's table made in set-up."""
+    config, traffic = tiny_cells()["tiny.correct"]
+    count, correct = traffic["stages"]
+    return config, dict(traffic, setup=[count], stages=[correct])
+
+
+def test_setup_stage_feeds_the_timed_chain(tmp_path, run_tiny, monkeypatch):
+    """kmerfreq -k 13 once in set-up, correct_error_reads -k 13 timed on
+    its table: correct; set-up's checker runs once, before the timed
+    stage's, on set-up's own files; no pass times kmerfreq."""
+    root, bench = make_root(str(tmp_path / "x"),
+                            {"x.setup": _setup_table_mix()})
+    calls = _spy_checkers(monkeypatch)
+    seen = _spy_passes(monkeypatch)
+    r = run_tiny("x.setup", seconds=3.0, root_bench=(root, bench))
+    assert r["correct"], r["compared"]
+    assert [c for c, _ in calls] == ["kmerfreq", "correct_error_reads"]
+    assert calls[0][1][-1].endswith(os.path.join("setup", "reads.lib"))
+    assert os.path.basename(os.path.dirname(calls[1][1][-1])) == \
+        f"pass{r['attempted'] - 1}"
+    assert {"passes_differ", "table_bytes_differ", "spectrum_lines_differ",
+            "reads_differ"} <= set(r["compared"])
+    passes = seen[0].passes
+    assert len(passes) == r["attempted"]
+    assert all([s for s, _ in p["spans_at"]] == ["correct"] for p in passes)
+
+
+def test_setup_stage_is_checked(tmp_path, run_tiny, monkeypatch):
+    """A fault in the set-up stage (one bit of its table) turns correct
+    false through set-up's checker."""
+    root, bench = make_root(str(tmp_path / "x"),
+                            {"x.setup": _setup_table_mix()})
+    _patch_table_bit(monkeypatch)
+    r = run_tiny("x.setup", root_bench=(root, bench))
+    assert not r["correct"]
+    assert r["compared"]["table_bytes_differ"]["value"] > 0
+
+
+# checkers of the two scaffolding commands that the repository lacks,
+# written into a throwaway root: each output is there
+CHECK_MAP_PAIR = """import os
+
+
+def check(argv, run, state):
+    with open(argv[-1]) as f:
+        read1 = os.path.basename(f.readline().strip())
+    out = os.path.join(argv[argv.index("-o") + 1], read1)
+    state.setdefault("maps", []).append(argv)
+    return {"map_pair_files_missing": (sum(
+        not os.path.isfile(out + ext)
+        for ext in (".map_pair.2ctg.gz", ".map_pair.stat")), 0)}
+"""
+
+CHECK_LINK_SCAFFOLD = """import os
+
+
+def check(argv, run, state):
+    pre = argv[argv.index("-o") + 1] + ".insert" + argv[argv.index("-i") + 1]
+    return {"scaffold_files_missing": (sum(
+        not os.path.isfile(pre + ext)
+        for ext in (".scaffold.seq.fa", ".scaffold.links.all")), 0)}
+"""
+
+
+def _scaffold_mix():
+    """The upstream's two scaffolding rounds (test/03.build_scaffold) on
+    contigs made in set-up: map_pair and link_scaffold at insert 400,
+    then again at 800 on the round-1 scaffolds."""
+    config, contig = tiny_cells()["tiny.ecoli_contig"]
+    stages, lists = [], {}
+    contigs = "{work}/asm.contig.seq.fa"
+    for rnd, lib in enumerate(("insert400", "insert800"), 1):
+        twoctg = f"twoctg_{lib}.lib"
+        lists[twoctg] = [f"{{work}}/map_{lib}/{lib}_1.fq.gz.map_pair.2ctg.gz"]
+        stages += [
+            {"span": f"map_pair.{lib}", "command": "map_pair",
+             "args": ["-k", "31", "-s", "5", "-l", "125", "-r",
+                      f"{{read_len.{lib}}}", "-i", "0.97", "-o",
+                      f"{{work}}/map_{lib}", contigs, f"{{lib.{lib}}}"]},
+            {"span": f"link_scaffold.{lib}", "command": "link_scaffold",
+             "args": ["-i", f"{{insert.{lib}}}", "-o", f"{{work}}/round{rnd}",
+                      contigs, "{work}/" + twoctg]}]
+        contigs = f"{{work}}/round{rnd}.insert{{insert.{lib}}}.scaffold.seq.fa"
+    return config, dict(contig, setup=contig["stages"], stages=stages,
+                        lists=lists)
+
+
+def test_command_checked_by_a_new_file(tmp_path, run_tiny, monkeypatch):
+    """A chain of commands the repository has no checker for stops before
+    any input is made; a checker file for each, added to the root alone,
+    makes it run and prove correct."""
+    from benchmark import harness
+    root, bench = make_root(str(tmp_path / "x"),
+                            {"x.scaffold": _scaffold_mix()})
+    with monkeypatch.context() as mp:
+        def never(*a, **kw):
+            raise AssertionError("inputs made for a cell that cannot run")
+        mp.setattr(harness.gen, "make_inputs", never)
+        with pytest.raises(SystemExit,
+                           match="no check for command 'map_pair'"):
+            run_tiny("x.scaffold", root_bench=(root, bench))
+    for command, text in (("map_pair", CHECK_MAP_PAIR),
+                          ("link_scaffold", CHECK_LINK_SCAFFOLD)):
+        with open(os.path.join(bench, "checkers", command + ".py"),
+                  "w") as f:
+            f.write(text)
+    r = run_tiny("x.scaffold", root_bench=(root, bench))
+    assert r["correct"], r["compared"]
+    assert {"passes_differ", "contigs_lines_differ",
+            "map_pair_files_missing",
+            "scaffold_files_missing"} <= set(r["compared"])
+
+
 def _patch_correct_unchanged(mp):
     from dbg_assembly_tpu_torch.correct import pipeline
     real = pipeline.correct_batch_torch

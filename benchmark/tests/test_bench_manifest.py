@@ -67,9 +67,33 @@ def test_every_per_layer_metric_moves_a_reported_metric():
 
 
 def test_every_stage_command_has_a_check():
-    from benchmark import checks
+    """Each command of every traffic's set-up and timed stages has its
+    checker, found as a run finds it."""
     for name in os.listdir(os.path.join(BENCH, "traffic")):
         with open(os.path.join(BENCH, "traffic", name)) as f:
             traffic = json.load(f)
-        for stage in traffic["stages"]:
-            assert stage["command"] in checks.CHECKS
+        for stage in traffic.get("setup", []) + traffic["stages"]:
+            assert callable(harness.checker(stage["command"]))
+
+
+def test_contig_readers_are_their_originals():
+    """Each <metric>.contig reader, loaded as the harness loads it, reads
+    what <metric>'s reader reads."""
+    from benchmark import trace
+    m = manifest()
+    names = {x["name"] for x in m["end_to_end"] + m["per_layer"]}
+    split = [x["name"] for x in m["per_layer"]
+             if x["name"].endswith(".contig")
+             and x["name"][:-len(".contig")] in names]
+    assert len(split) == 6
+    ctx = harness.Context(
+        None, 1, {"bases": 129_000_000}, {},
+        passes=[{"wall": 11.0, "start": 0.0, "spans": {}}] * 3,
+        trace={"busy_s": 1.5, "window_s": 50.0, "kernel_s": {
+            "chop_kernel(int)": 0.04, "onesweep_kernel(int)": 0.06}},
+        work={"chop_bytes": 3e9, "sort_bytes": 4e9}, peak_bytes=3 << 30)
+    for name in split:
+        base = name[:-len(".contig")]
+        assert harness.metric_reader(name)(ctx) == \
+            harness.metric_reader(base)(ctx), name
+    assert trace.CHOP.search("chop_kernel(int)")

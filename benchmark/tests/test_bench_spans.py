@@ -135,12 +135,18 @@ def _manifest():
 
 
 def test_manifest_entries():
-    per = {m["name"]: m for m in _manifest()["per_layer"]}
+    """Each span metric is wired as a span metric, moving the end-to-end
+    metric besides setup_s that each of its cells reports."""
+    manifest = _manifest()
+    per = {m["name"]: m for m in manifest["per_layer"]}
+    e2e = {m["name"]: m for m in manifest["end_to_end"]}
     assert set(SPAN_METRICS) <= set(per)
     for name in SPAN_METRICS:
         m = per[name]
-        assert (m["unit"], m["better"], m["source"], m["moves"]) == \
-            ("s", "lower", "program_span", "mbases_per_s")
+        assert (m["unit"], m["better"], m["source"]) == \
+            ("s", "lower", "program_span")
+        assert m["moves"] in e2e and m["moves"] != "setup_s"
+        assert set(m["workloads"]) <= set(e2e[m["moves"]]["workloads"])
 
 
 @pytest.mark.parametrize("name", sorted(SPAN_METRICS))

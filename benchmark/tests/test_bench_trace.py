@@ -54,3 +54,23 @@ def test_kernel_patterns():
              "void at::native::segmented_scan_kernel()": 9.0}
     assert trace.kernel_seconds(names, trace.CHOP) == 1.0
     assert trace.kernel_seconds(names, trace.SORT) == 2.75
+
+
+def test_card_seconds_leave_out_host_copies():
+    """card_s_per_gbase: the device's own work (kernels, sets, copies
+    within the card) over input gigabases times passes; copies to and
+    from host memory do not count; no value without a trace."""
+    from benchmark import harness
+    read = harness.metric_reader("card_s_per_gbase")
+    kernel_s = {"void chop_kernel<true>(unsigned char const*, int)": 0.5,
+                "Memcpy HtoD (Pageable -> Device)": 3.0,
+                "Memcpy DtoH (Device -> Pageable)": 4.0,
+                "Memcpy HtoD (Pinned -> Device)": 1.0,
+                "Memcpy DtoD (Device -> Device)": 0.25,
+                "Memset (Device)": 0.125}
+    ctx = harness.Context(None, 1, {"bases": 250_000_000}, {},
+                          passes=[{"wall": 1.0}, {"wall": 1.0}],
+                          trace={"kernel_s": kernel_s})
+    assert read(ctx) == (0.5 + 0.25 + 0.125) / 0.5
+    ctx.trace = None
+    assert read(ctx) is None
