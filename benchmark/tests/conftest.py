@@ -2,7 +2,8 @@
 tiny cells made from the real configuration and traffic files, and the
 ``gpu`` marker for tests that need the card."""
 
-import copy
+import functools
+import importlib.util
 import json
 import os
 import shutil
@@ -34,29 +35,35 @@ def _load(*parts):
         return json.load(f)
 
 
+CELLS = os.path.join(BENCH, "tests", "cells")
+
+
+@functools.cache
+def cell_tests() -> dict:
+    """traffic -> the module of tests/cells/<traffic>.py, for every such
+    file: the traffic's tiny twins (``tiny(load)``), its ``FAULTS``, its
+    ``control(monkeypatch)``, and optionally ``GUARANTEE_FAULTS``,
+    ``GUARANTEE`` and ``SPAN_METRICS``."""
+    mods = {}
+    for name in sorted(os.listdir(CELLS)):
+        if name.endswith(".py"):
+            traffic = name[:-3]
+            spec = importlib.util.spec_from_file_location(
+                "bench_cell_tests_" + traffic, os.path.join(CELLS, name))
+            mods[traffic] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mods[traffic])
+    return mods
+
+
 def tiny_cells() -> dict:
-    """name -> (config, traffic): the real files at a size the CPU holds
-    (k 13 for the correction table, a small initial hash)."""
-    ecoli = _load("configs", "ecoli_mg1655_pe250.json")
-    ecoli.update(name="tiny_ecoli", genome_length=30000)
-    for lib in ecoli["libraries"]:
-        lib["depth"] = 6
-    sa = _load("configs", "saureus_usa300_pe101.json")
-    sa.update(name="tiny_sa", genome_length=40000)
-    correct = _load("traffic", "correct.json")
-    for stage in correct["stages"]:
-        stage["args"][stage["args"].index("-k") + 1] = "13"
-    correct["check"] = {"random_reads": 60, "hardest_reads": 20}
-    contig = _load("traffic", "contig.json")
-    args = contig["stages"][0]["args"]
-    args[args.index("-i") + 1] = "0.001"
-    clean = _load("traffic", "clean.json")
-    for t in (correct, contig, clean):
-        t["warmup_reads"] = 100
-    return {"tiny.correct": (ecoli, correct),
-            "tiny.contig": (sa, contig),
-            "tiny.ecoli_contig": (ecoli, copy.deepcopy(contig)),
-            "tiny.clean": (ecoli, clean)}
+    """name -> (config, traffic): the real files at a size the CPU holds,
+    each traffic's twins as its tests/cells file cuts them."""
+    cells = {}
+    for mod in cell_tests().values():
+        twins = mod.tiny(_load)
+        assert not set(twins) & set(cells), sorted(set(twins) & set(cells))
+        cells.update(twins)
+    return cells
 
 
 def make_root(where: str, cells: dict) -> tuple[str, str]:
@@ -71,11 +78,13 @@ def make_root(where: str, cells: dict) -> tuple[str, str]:
                         ignore=shutil.ignore_patterns("__pycache__"))
     manifest = _load("..", "BENCHMARK.json")
     manifest["configs"], manifest["workloads"] = [], []
-    seen = set()
+    seen = {}
     for name, (config, traffic) in cells.items():
         tname = name.replace(".", "_")
-        if config["name"] not in seen:
-            seen.add(config["name"])
+        if config["name"] in seen:
+            assert seen[config["name"]] == config, config["name"]
+        else:
+            seen[config["name"]] = config
             path = f"benchmark/configs/{config['name']}.json"
             with open(os.path.join(where, path), "w") as f:
                 json.dump(config, f)

@@ -2,17 +2,61 @@
 card: each traffic proves correct against the reference; a new mix,
 configuration and metric need only new files; every fault the cells can
 have, planted under the timed path, turns ``correct`` false; so does each
-cell's control."""
+cell's control.  What each traffic brings (its tiny twins, faults and
+control) is its file tests/cells/<traffic>.py, found by listing."""
 
 import json
 import os
 
-import numpy as np
 import pytest
 
-from conftest import make_root, tiny_cells
+from conftest import BENCH, CELLS as CELLS_DIR, _load, cell_tests, \
+    make_root, tiny_cells
 
-CELLS = ["tiny.correct", "tiny.contig", "tiny.ecoli_contig", "tiny.clean"]
+CELLS = list(tiny_cells())
+# the tiny cell -> the tests/cells module of its traffic
+CELL_TESTS = {cell: mod for mod in cell_tests().values()
+              for cell in mod.tiny(_load)}
+# the three faults every traffic has, by the words before a fault's colon
+KINDS = ("state unchanged", "half the batch", "an answer altered")
+
+
+def _cells_file(traffic):
+    return os.path.relpath(os.path.join(CELLS_DIR, traffic + ".py"),
+                           os.path.dirname(BENCH))
+
+
+def _traffics():
+    listed = {n[:-5] for n in os.listdir(os.path.join(BENCH, "traffic"))
+              if n.endswith(".json")}
+    return sorted(listed | set(cell_tests()))
+
+
+@pytest.mark.parametrize("traffic", _traffics())
+def test_every_traffic_has_its_tests(traffic):
+    """Each traffic/<traffic>.json has its tests/cells/<traffic>.py, with
+    a control, a tiny twin of that traffic and a fault of each kind; each
+    such file, a traffic."""
+    path = _cells_file(traffic)
+    assert os.path.isfile(os.path.join(BENCH, "traffic", traffic + ".json")), \
+        f"{path} has no benchmark/traffic/{traffic}.json"
+    assert traffic in cell_tests(), \
+        f"benchmark/traffic/{traffic}.json has no {path}"
+    mod = cell_tests()[traffic]
+    assert callable(getattr(mod, "control", None)), f"{path}: no control"
+    twins = mod.tiny(_load)
+    assert twins, f"{path}: no tiny twin"
+    real = [s["command"] for s in _load("traffic", traffic + ".json")
+            ["stages"]]
+    for name, (_, mix) in twins.items():
+        assert [s["command"] for s in mix["stages"]] == real, (path, name)
+    faults = getattr(mod, "FAULTS", [])
+    missing = set(KINDS) - {f[1].split(":")[0] for f in faults}
+    assert not missing, f"{path}: no fault of kind {sorted(missing)}"
+    named = ([f[0] for f in faults]
+             + [f[0] for f in getattr(mod, "GUARANTEE_FAULTS", [])]
+             + list(getattr(mod, "SPAN_METRICS", {})))
+    assert set(named) <= set(twins), (path, sorted(set(named) - set(twins)))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -156,14 +200,14 @@ def test_setup_stage_is_checked(tmp_path, run_tiny, monkeypatch):
     false through set-up's checker."""
     root, bench = make_root(str(tmp_path / "x"),
                             {"x.setup": _setup_table_mix()})
-    _patch_table_bit(monkeypatch)
+    cell_tests()["correct"]._patch_table_bit(monkeypatch)
     r = run_tiny("x.setup", root_bench=(root, bench))
     assert not r["correct"]
     assert r["compared"]["table_bytes_differ"]["value"] > 0
 
 
-# checkers of the two scaffolding commands that the repository lacks,
-# written into a throwaway root: each output is there
+# stand-ins for the checkers of the two scaffolding commands, written into
+# a throwaway root: each output is there
 CHECK_MAP_PAIR = """import os
 
 
@@ -212,12 +256,18 @@ def _scaffold_mix():
 
 
 def test_command_checked_by_a_new_file(tmp_path, run_tiny, monkeypatch):
-    """A chain of commands the repository has no checker for stops before
-    any input is made; a checker file for each, added to the root alone,
-    makes it run and prove correct."""
+    """A chain of commands with no checker stops before any input is made;
+    a checker file for each, added to the root alone, makes it run and
+    prove correct.  The throwaway root's copy of checkers/ loses any file
+    of the chain's timed commands first, so that the test proves the same
+    whether or not the repository has them."""
     from benchmark import harness
-    root, bench = make_root(str(tmp_path / "x"),
-                            {"x.scaffold": _scaffold_mix()})
+    mix = _scaffold_mix()
+    root, bench = make_root(str(tmp_path / "x"), {"x.scaffold": mix})
+    for stage in mix[1]["stages"]:
+        path = os.path.join(bench, "checkers", stage["command"] + ".py")
+        if os.path.exists(path):
+            os.remove(path)
     with monkeypatch.context() as mp:
         def never(*a, **kw):
             raise AssertionError("inputs made for a cell that cannot run")
@@ -237,122 +287,8 @@ def test_command_checked_by_a_new_file(tmp_path, run_tiny, monkeypatch):
             "scaffold_files_missing"} <= set(r["compared"])
 
 
-def _patch_correct_unchanged(mp):
-    from dbg_assembly_tpu_torch.correct import pipeline
-    real = pipeline.correct_batch_torch
-
-    def unchanged(batch, *a, **kw):
-        ones, multis, deleteds, tls, trs, _ = real(batch, *a, **kw)
-        z = np.zeros_like(ones)
-        return z, z, z, z, z, batch.seqs_ascii
-    mp.setattr(pipeline, "correct_batch_torch", unchanged)
-
-
-def _patch_count_half(mp):
-    from dbg_assembly_tpu_torch.kmer import count
-    real = count.KmerCounter.add
-    mp.setattr(count.KmerCounter, "add",
-               lambda self, c, l: real(self, c[:len(c) // 2],
-                                       l[:len(l) // 2]))
-
-
-def _patch_table_bit(mp):
-    from dbg_assembly_tpu_torch.kmer import count
-    real = count.freq_bitmap
-
-    def flipped(*a, **kw):
-        out = real(*a, **kw)
-        out[np.flatnonzero(out)[0]] ^= 1
-        return out
-    mp.setattr(count, "freq_bitmap", flipped)
-
-
-def _patch_merge_unchanged(mp):
-    from dbg_assembly_tpu_torch.contig import graph
-    real = graph._merge_parts
-    mp.setattr(graph, "_merge_parts",
-               lambda parts, k: real(parts[:1], k))
-
-
-def _patch_ingest_half(mp):
-    from dbg_assembly_tpu_torch.contig import graph
-    real = graph._aggregate_batch
-    mp.setattr(graph, "_aggregate_batch",
-               lambda c, l, k, b: real(c[:len(c) // 2], l[:len(l) // 2], k,
-                                       b))
-
-
-def _patch_node_counter(mp):
-    from dbg_assembly_tpu_torch.contig import graph
-    real = graph.GraphBuilder.finalize
-
-    def altered(self):
-        t = real(self)
-        t.lcnt[len(t.lcnt) // 2, 0] += 7
-        return t
-    mp.setattr(graph.GraphBuilder, "finalize", altered)
-
-
-def _patch_lowqual_unchanged(mp):
-    from dbg_assembly_tpu_torch.clean import lowqual
-    real = lowqual.clean_lowqual_arrays
-
-    def untrimmed(*a, **kw):
-        res, quals = real(*a, **kw)
-        lengths = a[2].astype(np.int64)
-        res.keep_start[:] = 0
-        res.keep_len_pre[:] = lengths
-        res.final_len[:] = lengths
-        res.trimmed[:] = False
-        res.short[:] = False
-        return res, quals
-    mp.setattr(lowqual, "clean_lowqual_arrays", untrimmed)
-
-
-def _patch_adapter_half(mp):
-    from dbg_assembly_tpu_torch.clean import adapter
-    real = adapter._align_one_adapter
-
-    def half(codes, lengths, *a):
-        out = real(codes, lengths, *a)
-        n = codes.shape[0] // 2
-        for x in out:
-            x[n:] = 0
-        return out
-    mp.setattr(adapter, "_align_one_adapter", half)
-
-
-def _patch_lowqual_answer(mp):
-    from dbg_assembly_tpu_torch.clean import lowqual
-    real = lowqual._lowqual_scan
-
-    def altered(*a, **kw):
-        total, start, length = real(*a, **kw)
-        total[0] += 1e-6
-        return total, start, length
-    mp.setattr(lowqual, "_lowqual_scan", altered)
-
-
-FAULTS = [
-    ("tiny.correct", "state unchanged: correction returns its input",
-     _patch_correct_unchanged, "reads_differ"),
-    ("tiny.correct", "half the batch: counting sees half of each batch",
-     _patch_count_half, "table_bytes_differ"),
-    ("tiny.correct", "an answer altered: one bit of the table",
-     _patch_table_bit, "table_bytes_differ"),
-    ("tiny.contig", "state unchanged: the merge keeps the first batch",
-     _patch_merge_unchanged, "kmer_freq_lines_differ"),
-    ("tiny.contig", "half the batch: ingest sees half of each batch",
-     _patch_ingest_half, "kmer_freq_lines_differ"),
-    ("tiny.contig", "an answer altered: one edge counter",
-     _patch_node_counter, "kmer_freq_lines_differ"),
-    ("tiny.clean", "state unchanged: clean_lowqual trims nothing",
-     _patch_lowqual_unchanged, "lowqual_reads_differ"),
-    ("tiny.clean", "half the batch: the adapter DP scores half the reads",
-     _patch_adapter_half, "adapter_reads_differ"),
-    ("tiny.clean", "an answer altered: one read's error sum",
-     _patch_lowqual_answer, "lowqual_reads_differ"),
-]
+FAULTS = [f for mod in cell_tests().values()
+          for f in getattr(mod, "FAULTS", [])]
 
 
 @pytest.mark.parametrize("cell,what,patch,number", FAULTS,
@@ -367,12 +303,8 @@ def test_fault_is_caught(run_tiny, monkeypatch, cell, what, patch, number):
 
 # the faults that the checks replaying no tool (reference/guarantees.py)
 # catch as well
-GUARANTEE_FAULTS = [
-    ("tiny.correct", _patch_correct_unchanged, "untouched_reads_differ"),
-    ("tiny.correct", _patch_count_half, "untouched_reads_differ"),
-    ("tiny.contig", _patch_merge_unchanged, "contig_depths_differ"),
-    ("tiny.contig", _patch_ingest_half, "contig_depths_differ"),
-]
+GUARANTEE_FAULTS = [f for mod in cell_tests().values()
+                    for f in getattr(mod, "GUARANTEE_FAULTS", [])]
 
 
 @pytest.mark.parametrize("cell,patch,number", GUARANTEE_FAULTS,
@@ -384,43 +316,17 @@ def test_fault_breaks_a_guarantee(run_tiny, monkeypatch, cell, patch,
     assert r["compared"][number]["value"] > r["compared"][number]["limit"]
 
 
-# each cell's control: the step that would tempt a later PR, with the
-# guarantee it breaks (the configuration's byte-identical files)
-CONTROLS = {
-    # the table's cutoff taken as >= instead of the upstream's strict >
-    "correct": {"kmerfreq": ["-m", "0"]},
-    # a link taken at >= the depth cutoff instead of the strict >
-    # (contig.cpp:132)
-    "contig": {"debruijn_contig": ["-D", "1"]},
-}
-
-
-# the number of the checks replaying no tool that each control breaks
-GUARANTEE = {"correct": "untouched_reads_differ",
-             "contig": "contig_steps_unsupported"}
-
-
-def _float32_qual2err(mp):
-    """clean_lowqual's error sums from float32 error terms, the nearest
-    precision below the float64 the upstream sums in."""
-    from dbg_assembly_tpu_torch.clean import lowqual
-    real = lowqual.qual2err_table
-    mp.setattr(lowqual, "qual2err_table",
-               lambda shift=33: real(shift).astype(np.float32)
-               .astype(np.float64))
-
-
+# each cell's control, its traffic's control(): the step that would tempt
+# a later PR, with the number of the checks replaying no tool that it
+# breaks (GUARANTEE), where the traffic has one
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails(run_tiny, monkeypatch, cell):
-    kind = cell.split(".")[1].split("_")[-1]
-    if kind == "clean":
-        _float32_qual2err(monkeypatch)
-        r = run_tiny(cell, trace=False)
-    else:
-        r = run_tiny(cell, trace=False, control=CONTROLS[kind])
+    mod = CELL_TESTS[cell]
+    r = run_tiny(cell, trace=False, control=mod.control(monkeypatch))
     assert not r["correct"], r["compared"]
-    if kind in GUARANTEE:
-        got = r["compared"][GUARANTEE[kind]]
+    guarantee = getattr(mod, "GUARANTEE", None)
+    if guarantee:
+        got = r["compared"][guarantee]
         assert got["value"] > got["limit"], r["compared"]
 
 
@@ -442,11 +348,10 @@ def test_control_fails_at_cell_size(monkeypatch, cell):
     import time
     from benchmark import harness
     traffic = harness.load_cell(cell)[1]["traffic"]
-    control = None
-    if traffic == "clean":
-        _float32_qual2err(monkeypatch)
-    else:
-        control = CONTROLS[traffic]
+    if traffic not in cell_tests():
+        pytest.fail(f"no {_cells_file(traffic)}: no control for traffic "
+                    f"{traffic!r}")
+    control = cell_tests()[traffic].control(monkeypatch)
     out = os.environ.get("CONTROLS_JSONL")
     for seed in CONTROL_SEEDS:
         r = harness.run_cell(cell, seed, 1.0, False, time.perf_counter(),

@@ -10,6 +10,7 @@ import os
 import pytest
 
 from benchmark import harness, program_spans
+from conftest import cell_tests
 from dbg_assembly_tpu_torch import spans
 
 S = 10 ** 9
@@ -183,18 +184,19 @@ def test_reader_without_the_recorder(monkeypatch):
         assert harness.metric_reader(name)(Ctx(two_passes())) is None
 
 
-@pytest.mark.parametrize("cell,metrics", [
-    ("tiny.correct", ["span_s.parse", "span_s.gzip", "span_s.format",
-                      "span_s.qsplit", "span_s.table_write",
-                      "span_s.table_load"]),
-    ("tiny.contig", ["span_s.parse", "span_s.readout"]),
-    ("tiny.clean", ["span_s.parse", "span_s.gzip", "span_s.format",
-                    "span_s.clean_loop"]),
-])
-def test_readers_on_a_tiny_cell(run_tiny, monkeypatch, cell, metrics):
+# tiny cell -> the span metrics its run reads, from its traffic's file
+# tests/cells/<traffic>.py
+TINY_SPAN_METRICS = {cell: metrics for mod in cell_tests().values()
+                     for cell, metrics in
+                     getattr(mod, "SPAN_METRICS", {}).items()}
+
+
+@pytest.mark.parametrize("cell", sorted(TINY_SPAN_METRICS))
+def test_readers_on_a_tiny_cell(run_tiny, monkeypatch, cell):
     """A whole run of a tiny cell on the CPU gives each reader of the
     cell's real counterpart a value: the harness is asked for the span
     metrics beside the end-to-end ones (a traced run needs the card)."""
+    metrics = TINY_SPAN_METRICS[cell]
     real = harness.cell_metrics
 
     def with_spans(manifest, name, trace):
