@@ -20,12 +20,17 @@ from __future__ import annotations
 
 import gzip
 import os
+import struct
 import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from .. import dna, native, spans
+from .cz import _in_order, _workers
+
+GZ_CHUNK = 1 << 20     # source bytes a deflate chunk of a .gz output
+_WINDOW = 1 << 15      # deflate's window: the input a chunk is primed with
 
 
 @dataclass
@@ -146,14 +151,40 @@ def read_batch(path: str, fmt: str | None = None, strict_n: bool = False,
 
 
 def gz_write_bytes(path: str, data: bytes, level: int = 1) -> None:
-    """One-shot gzip write, level 1 by default: the port's .gz artifacts
-    are compared and consumed on their decompressed bytes, so the level
-    only trades size for time."""
-    with spans.span("io.gzip", bytes_in=len(data)):
-        co = zlib.compressobj(level, zlib.DEFLATED, 31)
+    """One gzip member at ``level`` (1 by default): the port's .gz
+    artifacts are compared and consumed on their decompressed bytes, so
+    the level only trades size for time.
+
+    The input is deflated in source chunks of GZ_CHUNK on the .cz codec's
+    pool of host threads (zlib drops the GIL), as pigz does: each chunk a
+    raw deflate stream primed with up to 32 KiB of the input before it,
+    ended by a full flush (the last by the stream's end), written in order
+    between zlib's own header and a trailer of the whole input's CRC-32
+    and length.  The bytes depend on the input and the level alone,
+    whatever the worker count; an input of one chunk or less runs in this
+    thread and gives exactly the bytes of one zlib gzip stream."""
+    n = len(data)
+    view = memoryview(data)
+    offs = range(0, n or 1, GZ_CHUNK)
+    workers = _workers(len(offs))
+
+    def deflate(off):
+        zdict = {"zdict": view[max(0, off - _WINDOW):off]} if off else {}
+        co = zlib.compressobj(level, zlib.DEFLATED, -15, **zdict)
+        end = off + GZ_CHUNK
+        return co.compress(view[off:end]) + co.flush(
+            zlib.Z_FINISH if end >= n else zlib.Z_FULL_FLUSH)
+
+    with spans.span("io.gzip", bytes_in=n, chunks=len(offs),
+                    workers=workers):
         with open(path, "wb") as f:
-            f.write(co.compress(data))
-            f.write(co.flush())
+            # the header zlib writes for this level
+            f.write(zlib.compressobj(level, zlib.DEFLATED, 31).flush()[:10])
+            crc = 0
+            for comp, off in zip(_in_order(deflate, offs, workers), offs):
+                f.write(comp)
+                crc = zlib.crc32(view[off:off + GZ_CHUNK], crc)
+            f.write(struct.pack("<II", crc, n & 0xFFFFFFFF))
             spans.add(bytes_out=f.tell())
 
 

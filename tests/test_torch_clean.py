@@ -25,8 +25,10 @@ from dbg_assembly_tpu.clean import lowqual as jlq
 from dbg_assembly_tpu.io import fastq as jfq
 from dbg_assembly_tpu_torch import cli as tcli
 from dbg_assembly_tpu_torch import dna as tdna
+from dbg_assembly_tpu_torch import spans
 from dbg_assembly_tpu_torch.clean import adapter as tad
 from dbg_assembly_tpu_torch.clean import lowqual as tlq
+from dbg_assembly_tpu_torch.io import fastq as tfq
 from dbg_assembly_tpu_torch.tools.soil import soil
 from torch_port_data import write_fastq, write_lib
 
@@ -202,12 +204,12 @@ def _same_outputs(jout: str, tout: str) -> None:
         assert b.read() == a.read()
 
 
-@pytest.mark.parametrize("source,cutoff", [("soiled", 0.001),
-                                           ("soiled", 0.02), ("hand", 0.001),
-                                           ("hand", 0.1)])
-def test_lowqual_file(soiled, tmp_path, source, cutoff):
-    inputs = soiled if source == "soiled" else [
+def _inputs(soiled, tmp_path, source) -> list:
+    return soiled if source == "soiled" else [
         _write_hand_fastq(str(tmp_path / "hand.fq"))]
+
+
+def _lowqual_outputs(inputs, tmp_path, cutoff) -> None:
     for i, path in enumerate(inputs):
         jout, tout = str(tmp_path / f"j{i}.gz"), str(tmp_path / f"t{i}.gz")
         for mod, out in ((jlq, jout), (tlq, tout)):
@@ -218,13 +220,7 @@ def test_lowqual_file(soiled, tmp_path, source, cutoff):
         assert b"TrimLowQual" in _gz(tout)
 
 
-@pytest.mark.parametrize("source,adapters,use_rc", [
-    ("soiled", "Both-adapter", False), ("hand", "Both-adapter", False),
-    ("hand", "file", False), ("hand", "file", True),
-    ("soiled", "R2-adapter", False)])
-def test_adapter_file(soiled, tmp_path, source, adapters, use_rc):
-    inputs = soiled if source == "soiled" else [
-        _write_hand_fastq(str(tmp_path / "hand.fq"))]
+def _adapter_outputs(inputs, tmp_path, adapters, use_rc) -> None:
     if adapters == "file":
         adapters = _adapter_file(tmp_path / "ad.fa")
     for i, path in enumerate(inputs):
@@ -236,6 +232,55 @@ def test_adapter_file(soiled, tmp_path, source, adapters, use_rc):
                          **kw)
         _same_outputs(jout, tout)
         assert b"Aligned to adapter" in _gz(tout)
+
+
+def _many_gz_chunks(monkeypatch) -> None:
+    """.gz outputs deflated in chunks of 4 KiB, so the fixtures' outputs
+    take gz_write_bytes's pool; every io.gzip span of the test is then
+    checked to have run more than one chunk."""
+    monkeypatch.setattr(tfq, "GZ_CHUNK", 4096)
+    monkeypatch.setattr(tfq.os, "sched_getaffinity",
+                        lambda pid: set(range(3)))
+    spans.reset()
+
+
+def _took_many_gz_chunks() -> None:
+    gz = [r.counts for r in spans.records() if r.name == "io.gzip"]
+    assert gz and all(c["chunks"] > 1 and c["workers"] == 3 for c in gz)
+
+
+@pytest.mark.parametrize("source,cutoff", [("soiled", 0.001),
+                                           ("soiled", 0.02), ("hand", 0.001),
+                                           ("hand", 0.1)])
+def test_lowqual_file(soiled, tmp_path, source, cutoff):
+    _lowqual_outputs(_inputs(soiled, tmp_path, source), tmp_path, cutoff)
+
+
+@pytest.mark.parametrize("source,adapters,use_rc", [
+    ("soiled", "Both-adapter", False), ("hand", "Both-adapter", False),
+    ("hand", "file", False), ("hand", "file", True),
+    ("soiled", "R2-adapter", False)])
+def test_adapter_file(soiled, tmp_path, source, adapters, use_rc):
+    _adapter_outputs(_inputs(soiled, tmp_path, source), tmp_path, adapters,
+                     use_rc)
+
+
+@pytest.mark.parametrize("cutoff", [0.001, 0.02])
+def test_lowqual_file_gz_chunks(soiled, tmp_path, monkeypatch, cutoff):
+    """test_lowqual_file with the outputs deflated in many chunks."""
+    _many_gz_chunks(monkeypatch)
+    _lowqual_outputs(soiled, tmp_path, cutoff)
+    _took_many_gz_chunks()
+
+
+@pytest.mark.parametrize("adapters,use_rc", [("Both-adapter", False),
+                                            ("file", True)])
+def test_adapter_file_gz_chunks(soiled, tmp_path, monkeypatch, adapters,
+                                use_rc):
+    """test_adapter_file with the outputs deflated in many chunks."""
+    _many_gz_chunks(monkeypatch)
+    _adapter_outputs(soiled, tmp_path, adapters, use_rc)
+    _took_many_gz_chunks()
 
 
 def test_cli_clean_two_stages(soiled, tmp_path):

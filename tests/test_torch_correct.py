@@ -27,6 +27,7 @@ from dbg_assembly_tpu.io import cz as jcz
 from dbg_assembly_tpu.io import fastq as jfq
 from dbg_assembly_tpu.kmer import count as jkc
 from dbg_assembly_tpu_torch import cli as tcli
+from dbg_assembly_tpu_torch import spans
 from dbg_assembly_tpu_torch.correct import device as tdev
 from dbg_assembly_tpu_torch.correct import engine as teng
 from dbg_assembly_tpu_torch.correct import pipeline as tpipe
@@ -454,6 +455,27 @@ def test_correct_file(tmp_path, fasta):
     tpipe.correct_file(path, bm, TPARAMS, fmt=fmt, device="cpu", chunk=16)
     assert _outputs(path) == want["jax"]
     assert tdev.counts["batches"] == -(-len(seqs) // 16)
+
+
+@pytest.mark.parametrize("fasta", [False, True])
+def test_correct_file_gz_chunks(tmp_path, monkeypatch, fasta):
+    """correct_file's .correct.fa.gz deflated in chunks of 1 KiB on three
+    workers, so the fixture's output takes gz_write_bytes's pool: its
+    bytes decompressed are still the JAX package's."""
+    seqs, bm = _odd_reads()
+    path = str(tmp_path / ("r.fa" if fasta else "r.fq.gz"))
+    _write_reads(path, seqs, fasta=fasta, gz=not fasta)
+    fmt = 2 if fasta else 1
+    jpipe.correct_file(path, bm, PARAMS, fmt=fmt, engine="native")
+    want = _outputs(path)
+    monkeypatch.setattr(tfq, "GZ_CHUNK", 1024)
+    monkeypatch.setattr(tfq.os, "sched_getaffinity",
+                        lambda pid: set(range(3)))
+    spans.reset()
+    tpipe.correct_file(path, bm, TPARAMS, fmt=fmt, device="cpu")
+    assert _outputs(path) == want
+    [gz] = [r.counts for r in spans.records() if r.name == "io.gzip"]
+    assert gz["chunks"] > 1 and gz["workers"] == 3
 
 
 @pytest.mark.parametrize("fasta", [False, True])
