@@ -141,7 +141,7 @@ def _correct(argv):
     out = pipeline.run(a.cz, a.lib, params, fmt=a.f, engine=a.engine,
                        device=a.device, mesh_devices=a.mesh)
     if a.j == 1:
-        from .contig.pipeline import read_file_list
+        from .io.lib import read_file_list
         from .utils.helpers import merge_corrected_pair
         files = read_file_list(a.lib)
         for i in range(0, len(files), 2):

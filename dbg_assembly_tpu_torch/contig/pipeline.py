@@ -20,17 +20,12 @@ import numpy as np
 
 from .. import spans
 from ..io import fastq
+from ..io.lib import read_file_list
 from .graph import GraphBuilder
 from .pointer_doubling import assemble_doubling
 from .refassemble import (AssembleParams, RefAssembler, _cap,
                           compute_hash_schedule, initial_hash_size)
 from .runlog import ContigRunLog, count_end_marks
-
-
-def read_file_list(path: str) -> list[str]:
-    """Parity: DBG_contig/seqKmer.cpp:101-114 (every nonempty line)."""
-    with open(path) as f:
-        return [line.rstrip("\n") for line in f if line.rstrip("\n")]
 
 
 def _read(path: str, fmt: int):

@@ -82,13 +82,18 @@ def bitmap_device(bitmap: np.ndarray, device="cuda") -> torch.Tensor:
     return torch.from_numpy(words).to(resolve_device(device))
 
 
+def _word_bit(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Bit idx of the table, 0 or 1 in w's dtype, from w = its word
+    (words[idx >> 5]): byte b of a little-endian word w is (w >> 8b) &
+    0xFF, and bits within a byte are MSB-first (get_freq,
+    correct_error/seqKmer.cpp:102-106).  The one reader of the layout on
+    the device."""
+    return (w >> (8 * ((idx >> 3) & 3) + (7 - (idx & 7)))) & 1
+
+
 def _probe(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Table lookup (get_freq, correct_error/seqKmer.cpp:102-106): int64
-    k-mers -> bool.  Byte b of a little-endian word w is (w >> 8b) & 0xFF;
-    bits within a byte are MSB-first (seqKmer.cpp:104)."""
-    w = words[idx >> 5]
-    shift = 8 * ((idx >> 3) & 3) + (7 - (idx & 7))
-    return ((w >> shift) & 1).bool()
+    """Table lookup: int64 k-mers -> bool."""
+    return _word_bit(words[idx >> 5], idx).bool()
 
 
 def _put(dst: torch.Tensor, index: tuple, vals) -> None:
@@ -213,16 +218,16 @@ def _stage_a(ascii_seq, codes, lengths, words, *, k: int, m: int,
 
 def _bbt_impl(ascii_seq, lengths, words, active, check_start, check_end,
               max_allowed, last_change_init, *, k: int, rightward: bool,
-              is_modify_trimmed: bool, unroll: int = UNROLL,
-              probe_word: bool = True):
+              is_modify_trimmed: bool, unroll: int = UNROLL):
     """One batched BBT call: every active read searches in lockstep.
 
-    probe_word selects the ONE-WORD probe: a lane's 4 rightward children
+    The children are probed ONE WORD a lane: a lane's 4 rightward children
     are consecutive k-mer values sharing one 32-bit table word, and since
     every correction table is RC-closed (the loaders OR in the
     reverse-complement bits, main_parallel_senior.cpp:310-329), the 4
     leftward children equal rc-space values (rc_kmer<<2 | comp(j)) that
-    share one word too: one gather a lane instead of four.
+    share one word too: one gather a lane instead of four.  Each lane
+    carries its k-mer's reverse complement (rkmer) for the leftward key.
 
     check_start/check_end: 1-based base positions (reference cycle range).
     Returns (new_ascii, num_corrected, len_need_trim, last_change,
@@ -253,8 +258,7 @@ def _bbt_impl(ascii_seq, lengths, words, active, check_start, check_end,
 
     lane = torch.arange(W, device=dev)[None, :]
     kmer = root[:, None].expand(N, W).clone()
-    rkmer = dna.revcomp_kbit(root, k)[:, None].expand(N, W).clone() \
-        if probe_word else None
+    rkmer = dna.revcomp_kbit(root, k)[:, None].expand(N, W).clone()
     change = torch.where(lane == 0, 0, BIG).to(i32).expand(N, W).clone()
     alive = (lane == 0) & active[:, None]
     # the <= 2 explicit changes of a path ride in ONE packed int32 a lane:
@@ -286,15 +290,12 @@ def _bbt_impl(ascii_seq, lengths, words, active, check_start, check_end,
             ck = (kmer[:, :, None] >> 2) | (jj << (2 * (k - 1)))
         same = bases_ascii[None, None, :] == rchar[:, None, None]
         cchange = change[:, :, None] + (~same).to(i32)
-        if probe_word:
-            wkey = ((kmer if rightward else rkmer) << 2) & mask
-            w = words[wkey >> 5]
-            jc = jj if rightward else 3 - jj
-            shift = (8 * ((wkey[:, :, None] >> 3) & 3) + 7
-                     - ((wkey[:, :, None] & 7) | jc))
-            hits = ((w[:, :, None] >> shift) & 1).bool()
-        else:
-            hits = _probe(words, ck)
+        # the children's bits, in the word of the lane's key (a multiple
+        # of 4): bit key | j rightward, key | comp(j) leftward
+        wkey = ((kmer if rightward else rkmer) << 2) & mask
+        w = words[wkey >> 5]
+        jc = jj if rightward else 3 - jj
+        hits = _word_bit(w[:, :, None], wkey[:, :, None] | jc).bool()
         calive = (alive[:, :, None] & (cchange <= ma) & hits
                   & running[:, None, None])
         fa = calive.reshape(N, 4 * W)
@@ -320,14 +321,13 @@ def _bbt_impl(ascii_seq, lengths, words, active, check_start, check_end,
 
         new_kmer = torch.where(new_alive, ck.reshape(N, 4 * W).gather(1, src),
                                0)
-        if probe_word:
-            jr = 3 - pj.to(torch.int64)                # complement of base
-            prk = rkmer.gather(1, par)
-            if rightward:
-                rk = (prk >> 2) | (jr << (2 * (k - 1)))
-            else:
-                rk = ((prk << 2) | jr) & mask
-            new_rkmer = torch.where(new_alive, rk, 0)
+        jr = 3 - pj.to(torch.int64)                    # complement of base
+        prk = rkmer.gather(1, par)
+        if rightward:
+            rk = (prk >> 2) | (jr << (2 * (k - 1)))
+        else:
+            rk = ((prk << 2) | jr) & mask
+        new_rkmer = torch.where(new_alive, rk, 0)
         was_same = new_alive & (bases_ascii[pj.long()] == rchar[:, None])
         p_change = pick(change)
         p_chg = pick(chg)
@@ -345,8 +345,7 @@ def _bbt_impl(ascii_seq, lengths, words, active, check_start, check_end,
         change = torch.where(pm, new_change, change)
         alive = torch.where(pm, new_alive, alive)
         chg = torch.where(pm, new_chg, chg)
-        if probe_word:
-            rkmer = torch.where(pm, new_rkmer, rkmer)
+        rkmer = torch.where(pm, new_rkmer, rkmer)
         cp_next = torch.where(progress, cp + step, cp)
         out_of_span = (cp_next > ce) if rightward else (cp_next < ce)
         done = done | (running & ~any_child) | (progress & out_of_span)
@@ -405,7 +404,7 @@ def _bbt_impl(ascii_seq, lengths, words, active, check_start, check_end,
 def _bbt_compact(ascii_seq, lengths, words, active, check_start, check_end,
                  max_allowed, last_change_init, *, k: int, rightward: bool,
                  is_modify_trimmed: bool, compact_c: int,
-                 unroll: int = UNROLL, probe_word: bool = True):
+                 unroll: int = UNROLL):
     """Active-row compaction around _bbt_impl: gather the first compact_c
     active reads into a compact batch, run the beam loop there, scatter the
     results back.  Active rows beyond compact_c are flagged for HOST
@@ -423,8 +422,7 @@ def _bbt_compact(ascii_seq, lengths, words, active, check_start, check_end,
         ascii_seq[rows_sel], lengths[rows_sel], words, act_c,
         check_start[rows_sel], check_end[rows_sel], max_allowed[rows_sel],
         last_change_init[rows_sel], k=k, rightward=rightward,
-        is_modify_trimmed=is_modify_trimmed, unroll=unroll,
-        probe_word=probe_word)
+        is_modify_trimmed=is_modify_trimmed, unroll=unroll)
 
     # scatter back to the active rows: rows_sel holds distinct rows
     wrow = (rows_sel[act_c],)
@@ -524,8 +522,7 @@ def correct_batch_device(ascii_np, codes_np, lengths_np, words, params,
 
 def _phase5(ascii_seq, lengths, words, hs1, he1, num_h, accum, multi, fail,
             fallback, *, k: int, mc: int, ft: int, min_len: int,
-            compact_c: int | None = None, unroll: int = UNROLL,
-            probe_word: bool = True):
+            compact_c: int | None = None, unroll: int = UNROLL):
     """Phase 5 (correct.cpp:273-334): head and tail BBT from the maximal
     combined high region, then Further_trim_len end safety.  compact_c:
     the compaction width of the head and tail beam calls (None: full
@@ -536,7 +533,7 @@ def _phase5(ascii_seq, lengths, words, hs1, he1, num_h, accum, multi, fail,
 
     def bbt(a, act, cs, ce, ma, lci, rightward):
         kw = dict(k=k, rightward=rightward, is_modify_trimmed=True,
-                  unroll=unroll, probe_word=probe_word)
+                  unroll=unroll)
         if compact_c is not None:
             return _bbt_compact(a, lengths, words, act, cs, ce, ma, lci,
                                 compact_c=compact_c, **kw)
@@ -594,8 +591,7 @@ def _phase5(ascii_seq, lengths, words, hs1, he1, num_h, accum, multi, fail,
 
 def _wave_step(ascii_seq, lengths, words, hs1, he1, num_h, accum, multi,
                fail, fallback, i: int, mc: int, *, k: int,
-               compact_c: int | None = None, unroll: int = UNROLL,
-               probe_word: bool = True):
+               compact_c: int | None = None, unroll: int = UNROLL):
     """Gap wave i: rightward BBT, then leftward for the failures
     (correct.cpp:222-263).  compact_c: the compaction width of the beam
     calls (None: full width)."""
@@ -604,7 +600,7 @@ def _wave_step(ascii_seq, lengths, words, hs1, he1, num_h, accum, multi,
 
     def bbt(a, act, cs, ce, ma, rightward):
         kw = dict(k=k, rightward=rightward, is_modify_trimmed=False,
-                  unroll=unroll, probe_word=probe_word)
+                  unroll=unroll)
         lci = torch.full((N,), -1, dtype=i32, device=a.device)
         if compact_c is not None:
             return _bbt_compact(a, lengths, words, act, cs, ce, ma, lci,

@@ -23,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 
 from .. import dna, resolve_device, spans
-from ..io import cz as czio
-from ..io import fastq, stat as statio
+from ..io import cz as czio, fastq, stat as statio
+from ..io.lib import read_file_list
 from ..kmer import count as kc
 from . import device as dev_engine
 from .engine import CorrectParams, ReadCorrector, classify_regions_batch
@@ -54,8 +54,7 @@ def load_bitmap_8bit(cz_path: str, ksize: int,
     hi = np.flatnonzero(freqs > low_freq_cutoff).astype(np.uint64)
     bitmap = np.zeros((1 << (2 * ksize)) // 8, dtype=np.uint8)
     for idx in (hi, dna.revcomp_kbit(hi, ksize)):
-        np.bitwise_or.at(bitmap, (idx // 8).astype(np.int64),
-                         (np.uint8(1) << (7 - (idx % 8)).astype(np.uint8)))
+        kc.bitmap_set(bitmap, idx)
     return bitmap
 
 
@@ -86,43 +85,45 @@ def correct_batch_torch(batch, bitmap: np.ndarray, p: CorrectParams,
             return dev_engine.correct_batch_device(*rows, words, p)
     n = batch.n_reads
     lengths = batch.lengths.astype(np.int32)
-    ones = np.zeros(n, np.int32)
-    multis = np.zeros(n, np.int32)
-    deleteds = np.zeros(n, np.int32)
-    tls = np.zeros(n, np.int32)
-    trs = np.zeros(n, np.int32)
-    reads_mod = np.ascontiguousarray(batch.seqs_ascii).copy()
-
+    outs = _outputs(n, np.ascontiguousarray(batch.seqs_ascii).copy())
     for off in range(0, n, chunk):
         end = min(off + chunk, n)
-        (o, m, d, tl, tr, am, fb) = engine(
-            batch.seqs_ascii[off:end], batch.codes[off:end],
-            lengths[off:end])
-        ones[off:end] = o
-        multis[off:end] = m
-        deleteds[off:end] = d
-        tls[off:end] = tl
-        trs[off:end] = tr
-        reads_mod[off:end] = am
-        # host fallback for flagged rows, from the ORIGINAL read
-        flagged = np.flatnonzero(fb)
+        *res, fb = engine(batch.seqs_ascii[off:end], batch.codes[off:end],
+                          lengths[off:end])
+        for out, r in zip(outs, res):
+            out[off:end] = r
+        flagged = off + np.flatnonzero(fb)
         if len(flagged) == 0:
             continue
         with spans.span("correct.fallback", rows=len(flagged)):
-            for i in flagged:
-                gi = off + int(i)
-                L = int(lengths[gi])
-                read = bytearray(batch.seqs_ascii[gi, :L].tobytes())
-                corr = ReadCorrector(bitmap, p)
-                bits_i = classify_regions_batch(
-                    batch.codes[gi:gi + 1], lengths[gi:gi + 1], bitmap,
-                    p.ksize)[0]
-                (ones[gi], multis[gi], deleteds[gi], tls[gi],
-                 trs[gi]) = corr.correct_one_read(
-                    read, bits_i[:max(L - p.ksize + 1, 0)])
-                reads_mod[gi, :L] = np.frombuffer(bytes(read), np.uint8)
-                dev_engine.counts["fallback"] += 1
-    return ones, multis, deleteds, tls, trs, reads_mod
+            _host_correct(batch, flagged, bitmap, p, outs)
+            dev_engine.counts["fallback"] += len(flagged)
+    return outs
+
+
+def _outputs(n: int, reads_mod: np.ndarray) -> tuple:
+    """(ones, multis, deleteds, left trims, right trims, corrected reads)
+    of n reads: five int32 zero arrays and ``reads_mod``."""
+    return tuple(np.zeros(n, np.int32) for _ in range(5)) + (reads_mod,)
+
+
+def _host_correct(batch, rows: np.ndarray, bitmap: np.ndarray,
+                  p: CorrectParams, outs: tuple) -> None:
+    """The host engine (engine.py) over ``rows`` of ``batch``, each read
+    from its ORIGINAL bytes, into those rows of ``outs`` (_outputs).  A
+    read shorter than k has no k-mer, hence no high region: the corrector
+    returns it deleted and unchanged."""
+    bits = classify_regions_batch(batch.codes[rows], batch.lengths[rows],
+                                  bitmap, p.ksize)
+    corr = ReadCorrector(bitmap, p)
+    *scores, reads_mod = outs
+    for i, b in zip(rows, bits):
+        L = int(batch.lengths[i])
+        read = bytearray(batch.seqs_ascii[i, :L].tobytes())
+        res = corr.correct_one_read(read, b[:max(L - p.ksize + 1, 0)])
+        for out, v in zip(scores, res):
+            out[i] = v
+        reads_mod[i, :L] = np.frombuffer(bytes(read), np.uint8)
 
 
 def _engine(requested: str = "auto") -> str:
@@ -133,44 +134,68 @@ def _engine(requested: str = "auto") -> str:
 
 
 def _correct_rows(batch, bitmap: np.ndarray, p: CorrectParams, engine: str,
-                  mesh, device, words, chunk: int):
+                  mesh=None, device=None, words=None,
+                  chunk: int = DEFAULT_CHUNK):
     """(ones, multis, deleteds, left trims, right trims, corrected reads)
     of every read of ``batch`` on the named engine."""
     n = batch.n_reads
-    lengths = batch.lengths.astype(np.int64)
-    if engine == "torch" and n > 0:
-        # the torch engine classifies regions on the device (_stage_a) and
-        # its host fallback re-derives bits per flagged read
+    if n == 0:
+        return _outputs(0, batch.seqs_ascii)
+    if engine == "torch":
+        # the torch engine classifies regions on the device (_stage_a);
+        # its host fallback classifies the rows it flags
         return correct_batch_torch(batch, bitmap, p, words=words,
                                    chunk=chunk, device=device, mesh=mesh)
-    bits = None if engine == "torch" else classify_regions_batch(
-        batch.codes, batch.lengths, bitmap, p.ksize)
-    if engine == "native" and n > 0:
+    if engine == "native":
         from .. import native as nat
+        bits = classify_regions_batch(batch.codes, batch.lengths, bitmap,
+                                      p.ksize)
         Lmax = batch.seqs_ascii.shape[1]
         flat = np.ascontiguousarray(batch.seqs_ascii).reshape(-1)
         offsets = np.arange(n, dtype=np.int64) * Lmax
         ones, multis, deleteds, tls, trs = nat.correct_batch(
-            flat, offsets, lengths.astype(np.int32), bits, bitmap, p)
+            flat, offsets, batch.lengths.astype(np.int32), bits, bitmap, p)
         return ones, multis, deleteds, tls, trs, flat.reshape(n, Lmax)
-    corr = ReadCorrector(bitmap, p)
-    ones = np.zeros(n, np.int32)
-    multis = np.zeros(n, np.int32)
-    deleteds = np.zeros(n, np.int32)
-    tls = np.zeros(n, np.int32)
-    trs = np.zeros(n, np.int32)
-    reads_mod = batch.seqs_ascii
-    for i in range(n):
-        L = int(lengths[i])
-        read = bytearray(batch.seqs_ascii[i, :L].tobytes())
-        if L >= p.ksize:
-            (ones[i], multis[i], deleteds[i], tls[i],
-             trs[i]) = corr.correct_one_read(
-                read, bits[i, :max(L - p.ksize + 1, 0)])
+    outs = _outputs(n, batch.seqs_ascii)
+    _host_correct(batch, np.arange(n), bitmap, p, outs)
+    return outs
+
+
+def _write_records(batch, outs: tuple, fmt: int, annotate) -> tuple:
+    """The corrected reads' records and their tallies.  A record is the
+    read's header (FASTQ's '@' as '>'), annotate(score, final length,
+    left trim, right trim, deleted), and the read trimmed (empty if
+    deleted), a line each.  The tallies are write_correct_stat's."""
+    lengths = batch.lengths.tolist()
+    reads_mod = outs[5]
+    res_reads = res_bases = trimmed_reads = trimmed_bases = deleted_reads \
+        = fast_score = bbt_score = 0
+    out = bytearray()
+    for i, (head, L, one, multi, deleted, tl, tr) in enumerate(zip(
+            batch.heads, lengths, *(o.tolist() for o in outs[:5]))):
+        if fmt == 1 and head[:1] == b"@":
+            head = b">" + head[1:]
+        final_len = L - tl - tr
+        if not deleted:
+            fast_score += one
+            bbt_score += multi
+            read = reads_mod[i, tl:tl + final_len].tobytes()
+            if tl > 0 or tr > 0:
+                trimmed_reads += 1
+                trimmed_bases += tl + tr
+            res_reads += 1
+            res_bases += final_len
         else:
-            deleteds[i] = 1
-        reads_mod[i, :L] = np.frombuffer(bytes(read), np.uint8)
-    return ones, multis, deleteds, tls, trs, reads_mod
+            deleted_reads += 1
+            read = b""
+        out += (head + annotate(one + multi, len(read), tl, tr,
+                                deleted).encode()
+                + b"\n" + read + b"\n")
+    return bytes(out), dict(
+        raw_reads=len(lengths), raw_bases=sum(lengths), res_reads=res_reads,
+        res_bases=res_bases, trimmed_reads=trimmed_reads,
+        trimmed_bases=trimmed_bases, deleted_reads=deleted_reads,
+        fast_score=fast_score, bbt_score=bbt_score)
 
 
 def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
@@ -187,58 +212,22 @@ def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
                              strict_n=False, keep_heads=True,
                              keep_ascii=True)
     n = batch.n_reads
-    lengths = batch.lengths.astype(np.int64)
     with spans.span("correct.engine", reads=n):
-        (ones, multis, deleteds, tls, trs,
-         reads_mod) = _correct_rows(batch, bitmap, p, engine, mesh, device,
-                                    words, chunk)
-
-    num_res_reads = 0
-    num_res_bases = 0
-    num_trimmed_reads = 0
-    num_trimmed_bases = 0
-    num_deleted_reads = 0
-    one_total = 0
-    multi_total = 0
-    out = bytearray()
+        outs = _correct_rows(batch, bitmap, p, engine, mesh, device, words,
+                             chunk)
     with spans.span("correct.format", records=n):
-        for i in range(n):
-            L = int(lengths[i])
-            head = batch.heads[i]
-            if fmt == 1 and head[:1] == b"@":
-                head = b">" + head[1:]
-            one, multi, deleted, tl, tr = (int(ones[i]), int(multis[i]),
-                                           int(deleteds[i]), int(tls[i]),
-                                           int(trs[i]))
-            score = one + multi
-            final_len = L - tl - tr
-            if not deleted:
-                one_total += one
-                multi_total += multi
-                read = reads_mod[i, tl:tl + final_len].tobytes()
-                if tl > 0 or tr > 0:
-                    num_trimmed_reads += 1
-                    num_trimmed_bases += tl + tr
-                num_res_reads += 1
-                num_res_bases += final_len
-            else:
-                num_deleted_reads += 1
-                read = b""
-            out += (head + f"\tModifiedBaseNum: {score}"
-                    f"\tFinalReadLength: {len(read)}"
-                    f"\tLeftEndTrim: {tl}\tRightEndTrim: {tr}"
-                    f"\tIsDeleted: {deleted}".encode()
-                    + b"\n" + read + b"\n")
-
+        out, tallies = _write_records(
+            batch, outs, fmt,
+            lambda score, final, tl, tr, deleted: (
+                f"\tModifiedBaseNum: {score}\tFinalReadLength: {final}"
+                f"\tLeftEndTrim: {tl}\tRightEndTrim: {tr}"
+                f"\tIsDeleted: {deleted}"))
     out_path = path + ".correct.fa.gz"
-    fastq.gz_write_bytes(out_path, bytes(out))
-    statio.write_correct_stat(path + ".correct.stat", n,
-                              int(lengths.sum()), num_res_reads,
-                              num_res_bases, num_trimmed_reads,
-                              num_trimmed_bases, num_deleted_reads,
-                              one_total, multi_total)
+    fastq.gz_write_bytes(out_path, out)
+    statio.write_correct_stat(path + ".correct.stat", **tallies)
     return {"out": out_path, "stat": path + ".correct.stat",
-            "res_reads": num_res_reads, "deleted": num_deleted_reads}
+            "res_reads": tallies["res_reads"],
+            "deleted": tallies["deleted_reads"]}
 
 
 def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
@@ -248,8 +237,6 @@ def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
     engine puts the table on ``device`` once for all files.  mesh_devices
     > 0 shards it over that many slots on ``device`` (the k > 17 capacity
     path), which implies the torch engine."""
-    from ..contig.pipeline import read_file_list
-
     mesh = None
     if mesh_devices:
         from ..parallel import mesh as meshmod
@@ -288,66 +275,13 @@ def correct_file_8bit(path: str, bitmap: np.ndarray, params: CorrectParams,
     batch = fastq.read_batch(path, fmt="fq" if fmt == 1 else "fa",
                              strict_n=False, keep_heads=True,
                              keep_ascii=True)
-    n = batch.n_reads
-    lengths = batch.lengths.astype(np.int64)
-    bits = classify_regions_batch(batch.codes, batch.lengths, bitmap,
-                                  p.ksize)
-    corr = ReadCorrector(bitmap, p)
-
-    stats = dict(raw_reads=n, raw_bases=int(lengths.sum()), res_reads=0,
-                 res_bases=0, trimmed_reads=0, trimmed_bases=0,
-                 deleted_reads=0, one=0, multi=0)
-    out = bytearray()
-    for i in range(n):
-        L = int(lengths[i])
-        head = batch.heads[i]
-        if fmt == 1 and head[:1] == b"@":
-            head = b">" + head[1:]
-        read = bytearray(batch.seqs_ascii[i, :L].tobytes())
-        if L >= p.ksize:
-            one, multi, deleted, tl, tr = corr.correct_one_read(
-                read, bits[i, :max(L - p.ksize + 1, 0)])
-        else:
-            one, multi, deleted, tl, tr = 0, 0, 1, 0, 0
-        score = one + multi
-        final_len = L - tl - tr
-        if not deleted:
-            stats["one"] += one
-            stats["multi"] += multi
-            if tl > 0 or tr > 0:
-                read = read[tl:tl + final_len]
-                stats["trimmed_reads"] += 1
-                stats["trimmed_bases"] += tl + tr
-            stats["res_reads"] += 1
-            stats["res_bases"] += final_len
-            out += (head + f" score: {score}  left_trim: {tl}".encode()
-                    + b"\n" + bytes(read) + b"\n")
-        else:
-            stats["deleted_reads"] += 1
-            out += (head + f" score: {score}  left_trim: {tl}".encode()
-                    + b"\n\n")
-    fastq.gz_write_bytes(path + ".cor", bytes(out))
-
-    all_score = stats["one"] + stats["multi"]
-    filt = (stats["raw_bases"] - stats["res_bases"]) / stats["raw_bases"] \
-        if stats["raw_bases"] else float("nan")
-    corr_ratio = all_score / stats["res_bases"] if stats["res_bases"] \
-        else float("nan")
-    with open(path + ".cor.stat", "w") as f:
-        f.write(f"num_raw_reads {stats['raw_reads']}\n")
-        f.write(f"num_raw_bases {stats['raw_bases']}\n")
-        f.write(f"num_result_reads {stats['res_reads']}\n")
-        f.write(f"num_result_bases {stats['res_bases']}\n")
-        f.write(f"\nnum_trimmed_reads {stats['trimmed_reads']}\n")
-        f.write(f"num_trimmed_bases {stats['trimmed_bases']}\n")
-        f.write(f"num_deleted_reads {stats['deleted_reads']}\n")
-        f.write(f"\nnum_corrected_bases_by_Fast_method {stats['one']}\n")
-        f.write(f"num_corrected_bases_by_BBtree_method {stats['multi']}\n")
-        f.write(f"num_corrected_bases_by_two_methods {all_score}\n")
-        f.write("\nlow_quality_bases_filter_ratio "
-                f"{statio.fmt_g6(filt)}\n")
-        f.write("estimated_raw_base_error_ratio "
-                f"{statio.fmt_g6(corr_ratio)}\n")
+    outs = _correct_rows(batch, bitmap, p, "python")
+    out, tallies = _write_records(
+        batch, outs, fmt,
+        lambda score, final, tl, tr, deleted: (
+            f" score: {score}  left_trim: {tl}"))
+    fastq.gz_write_bytes(path + ".cor", out)
+    statio.write_cor_stat(path + ".cor.stat", **tallies)
     return {"out": path + ".cor", "stat": path + ".cor.stat"}
 
 
@@ -358,7 +292,6 @@ def run_8bit(cz_path: str, lib_path: str, ksize: int = 17,
              fmt: int = 1, join: bool = True) -> list[dict]:
     """correct_error (v2.2, 8-bit table) pipeline.  -m 0 resolves to the
     RUNTIME k (main.cpp:93-95), -x 0 to the compiled 17/2 = 8."""
-    from ..contig.pipeline import read_file_list
     from ..utils.helpers import merge_corrected_pair
 
     params = CorrectParams(

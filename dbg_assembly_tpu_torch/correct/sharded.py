@@ -84,7 +84,7 @@ def probe_collective(mesh, shards: list[torch.Tensor],
     for t, (sh, q) in enumerate(zip(shards, allq)):
         # a word this slot does not own reads as 0: no bit
         w = _words_here(sh, t * W, q >> 5)
-        bits.append((w >> (8 * ((q >> 3) & 3) + (7 - (q & 7)))) & 1)
+        bits.append(dev._word_bit(w, q))
     out = meshmod.psum_scatter(mesh, bits, [f.shape[0] for f in flat])
     return [o.bool().reshape(i.shape) for o, i in zip(out, idx)]
 

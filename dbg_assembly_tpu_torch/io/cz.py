@@ -8,54 +8,23 @@ plus a text file of each compressed block's byte size
 (main_parallel_senior.cpp:71,285-295).  The 8-bit table holds one saturated
 count a k-mer in source blocks of 8 MiB (correct_error/main.cpp:48,190-215).
 
-Each block is its own zlib stream, so both directions run the blocks on a
-pool of host threads (zlib drops the GIL while it deflates or inflates):
-one worker a core the process may run on, at most one a block.  The bytes
-written are those of a serial loop, whatever the worker count.
+Each block is its own zlib stream, so both directions run the blocks on
+the host pool (io/pool.py): one worker a core the process may run on, at
+most one a block.  The bytes written are those of a serial loop, whatever
+the worker count.
 """
 
 from __future__ import annotations
 
-import collections
 import itertools
-import os
 import zlib
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from .. import spans
+from . import pool
 
 SRC_BLOCK_KMERS = 8 * 1024 * 1024      # 8M k-mers per compression block
-IN_FLIGHT = 4                          # compressed blocks held a worker
-
-
-def _workers(n_blocks: int) -> int:
-    """Threads for n_blocks blocks: the process's cores, at most one a
-    block."""
-    return max(1, min(len(os.sched_getaffinity(0)), n_blocks))
-
-
-def _in_order(fn, items, workers: int):
-    """fn over items, its results in order: in this thread for one worker,
-    else on a pool of ``workers`` threads with at most IN_FLIGHT a worker
-    pending.  A raise in fn reaches the caller at its item, as in a serial
-    loop; the items after it are cancelled."""
-    if workers == 1:
-        yield from map(fn, items)
-        return
-    with ThreadPoolExecutor(workers) as pool:
-        pending = collections.deque()
-        try:
-            for item in items:
-                if len(pending) == IN_FLIGHT * workers:
-                    yield pending.popleft().result()
-                pending.append(pool.submit(fn, item))
-            while pending:
-                yield pending.popleft().result()
-        finally:
-            for fut in pending:
-                fut.cancel()
 
 
 def _write_blocks(path: str, table: np.ndarray, block_bytes: int,
@@ -64,7 +33,7 @@ def _write_blocks(path: str, table: np.ndarray, block_bytes: int,
     list each compressed block's size in ``path``.len."""
     table = np.ascontiguousarray(table)
     offs = range(0, len(table), block_bytes)
-    workers = _workers(len(offs))
+    workers = pool.workers(len(offs))
 
     def deflate(off):
         return zlib.compress(memoryview(table[off:off + block_bytes]), level)
@@ -73,7 +42,7 @@ def _write_blocks(path: str, table: np.ndarray, block_bytes: int,
     with spans.span("io.cz_write", bytes=len(table), blocks=len(offs),
                     workers=workers):
         with open(path, "wb") as f:
-            for comp in _in_order(deflate, offs, workers):
+            for comp in pool.in_order(deflate, offs, workers):
                 f.write(comp)
                 sizes.append(len(comp))
         with open(path + ".len", "w") as f:
@@ -104,7 +73,7 @@ def _read_blocks(path: str, out: np.ndarray, block_bytes: int) -> np.ndarray:
             data = memoryview(f.read())
         ends = list(itertools.accumulate(sizes))
         starts = [0] + ends[:-1]
-        workers = _workers(len(sizes))
+        workers = pool.workers(len(sizes))
         spans.add(blocks=len(sizes), workers=workers)
 
         def inflate(i):
@@ -113,7 +82,7 @@ def _read_blocks(path: str, out: np.ndarray, block_bytes: int) -> np.ndarray:
             off = i * block_bytes
             out[off:off + len(raw)] = np.frombuffer(raw, dtype=np.uint8)
 
-        for _ in _in_order(inflate, range(len(sizes)), workers):
+        for _ in pool.in_order(inflate, range(len(sizes)), workers):
             pass
     return out
 

@@ -27,7 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .. import dna, native, spans
-from .cz import _in_order, _workers
+from . import pool
 
 GZ_CHUNK = 1 << 20     # source bytes a deflate chunk of a .gz output
 _WINDOW = 1 << 15      # deflate's window: the input a chunk is primed with
@@ -155,10 +155,9 @@ def gz_write_bytes(path: str, data: bytes, level: int = 1) -> None:
     artifacts are compared and consumed on their decompressed bytes, so
     the level only trades size for time.
 
-    The input is deflated in source chunks of GZ_CHUNK on the .cz codec's
-    pool of host threads (zlib drops the GIL), as pigz does: each chunk a
-    raw deflate stream primed with up to 32 KiB of the input before it,
-    ended by a full flush (the last by the stream's end), written in order
+    The input is deflated in source chunks of GZ_CHUNK on the host pool
+    (io/pool.py), as pigz does: each chunk a raw deflate stream primed
+    with up to 32 KiB of the input before it, ended by a full flush (the last by the stream's end), written in order
     between zlib's own header and a trailer of the whole input's CRC-32
     and length.  The bytes depend on the input and the level alone,
     whatever the worker count; an input of one chunk or less runs in this
@@ -166,7 +165,7 @@ def gz_write_bytes(path: str, data: bytes, level: int = 1) -> None:
     n = len(data)
     view = memoryview(data)
     offs = range(0, n or 1, GZ_CHUNK)
-    workers = _workers(len(offs))
+    workers = pool.workers(len(offs))
 
     def deflate(off):
         zdict = {"zdict": view[max(0, off - _WINDOW):off]} if off else {}
@@ -181,7 +180,7 @@ def gz_write_bytes(path: str, data: bytes, level: int = 1) -> None:
             # the header zlib writes for this level
             f.write(zlib.compressobj(level, zlib.DEFLATED, 31).flush()[:10])
             crc = 0
-            for comp, off in zip(_in_order(deflate, offs, workers), offs):
+            for comp, off in zip(pool.in_order(deflate, offs, workers), offs):
                 f.write(comp)
                 crc = zlib.crc32(view[off:off + GZ_CHUNK], crc)
             f.write(struct.pack("<II", crc, n & 0xFFFFFFFF))

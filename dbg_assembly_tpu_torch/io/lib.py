@@ -1,8 +1,10 @@
 """.lib list files and .para scaffold recipes.
 
-Counterpart of dbg_assembly_tpu/io/lib.py.  Parity:
-correct_error/seqKmer.cpp:110-129 (whitespace stripped per line),
-link_scaffold/map_func.cpp:57-77 ('#' comments, first token), and the
+Counterpart of dbg_assembly_tpu/io/lib.py and of the JAX package's
+contig/pipeline.py read_file_list.  Parity: DBG_contig/seqKmer.cpp:101-114
+(every nonempty line, read_file_list), correct_error/seqKmer.cpp:110-129
+(whitespace stripped per line), link_scaffold/map_func.cpp:57-77 ('#'
+comments, first token), and the
 scaffolding recipe of link_scaffold/yeast.para:1-8 with the columns
   scaf_rank kmer_size seedKmerNum align_ident insert_size pairNumCut is_mate read_file
 """
@@ -10,6 +12,12 @@ scaffolding recipe of link_scaffold/yeast.para:1-8 with the columns
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+def read_file_list(path: str) -> list[str]:
+    """Parity: DBG_contig/seqKmer.cpp:101-114 (every nonempty line)."""
+    with open(path) as f:
+        return [line.rstrip("\n") for line in f if line.rstrip("\n")]
 
 
 def read_lib(path: str) -> list[str]:

@@ -86,6 +86,26 @@ def write_correct_stat(path: str, raw_reads: int, raw_bases: int,
                        bbt_score: int) -> None:
     """correct_error_reads' .correct.stat (main_parallel_senior.cpp:
     661-675)."""
+    _correct_stat(path, ("filter_ratio: (num_raw_bases - num_res_bases) / "
+                         "num_raw_bases",
+                         "correct_ratio: total_all_base_correct_score / "
+                         "num_res_bases"),
+                  raw_reads, raw_bases, res_reads, res_bases, trimmed_reads,
+                  trimmed_bases, deleted_reads, fast_score, bbt_score)
+
+
+def write_cor_stat(path: str, **tallies: int) -> None:
+    """correct_error's .cor.stat (correct_error/correct.cpp:639-848):
+    write_correct_stat's tallies, by its parameter names, with the 8-bit
+    program's older names of the two ratios."""
+    _correct_stat(path, ("low_quality_bases_filter_ratio",
+                         "estimated_raw_base_error_ratio"), **tallies)
+
+
+def _correct_stat(path: str, ratio_names: tuple, raw_reads: int,
+                  raw_bases: int, res_reads: int, res_bases: int,
+                  trimmed_reads: int, trimmed_bases: int, deleted_reads: int,
+                  fast_score: int, bbt_score: int) -> None:
     all_score = fast_score + bbt_score
     filt = (raw_bases - res_bases) / raw_bases if raw_bases else float("nan")
     corr = all_score / res_bases if res_bases else float("nan")
@@ -100,10 +120,8 @@ def write_correct_stat(path: str, raw_reads: int, raw_bases: int,
         f.write(f"\nnum_corrected_bases_by_Fast_method {fast_score}\n")
         f.write(f"num_corrected_bases_by_BBtree_method {bbt_score}\n")
         f.write(f"num_corrected_bases_by_two_methods {all_score}\n")
-        f.write("\nfilter_ratio: (num_raw_bases - num_res_bases) / "
-                f"num_raw_bases {fmt_g6(filt)}\n")
-        f.write("correct_ratio: total_all_base_correct_score / "
-                f"num_res_bases {fmt_g6(corr)}\n")
+        f.write(f"\n{ratio_names[0]} {fmt_g6(filt)}\n")
+        f.write(f"{ratio_names[1]} {fmt_g6(corr)}\n")
 
 
 def write_kmerfreq_stat(path: str, ksize: int, max_freq: int,

@@ -186,9 +186,7 @@ def freq_bitmap(unique: np.ndarray, counts: np.ndarray, ksize: int,
     canonical index iff count > low_freq_cutoff (main_parallel_senior.cpp:
     310-329; strict '>' per main.cpp:202)."""
     bitmap = np.zeros((1 << (2 * ksize)) // 8, dtype=np.uint8)
-    hi = unique[counts > low_freq_cutoff].astype(np.uint64)
-    np.bitwise_or.at(bitmap, (hi // 8).astype(np.int64),
-                     (np.uint8(1) << (7 - (hi % 8)).astype(np.uint8)))
+    bitmap_set(bitmap, unique[counts > low_freq_cutoff].astype(np.uint64))
     return bitmap
 
 
@@ -211,9 +209,16 @@ def expand_bitmap_rc(bitmap: np.ndarray, ksize: int) -> np.ndarray:
     idx = (nz[rows].astype(np.uint64) << np.uint64(3)) + cols.astype(np.uint64)
     rc = dna.revcomp_kbit(idx, ksize)
     out = bitmap.copy()
-    np.bitwise_or.at(out, (rc // 8).astype(np.int64),
-                     (np.uint8(1) << (7 - (rc % 8)).astype(np.uint8)))
+    bitmap_set(out, rc)
     return out
+
+
+def bitmap_set(bitmap: np.ndarray, idx: np.ndarray) -> None:
+    """Set the bits of uint64 indices ``idx`` in a byte table, in place:
+    bit 7 - idx % 8 of byte idx / 8, MSB-first (the layout get_freq reads,
+    correct_error/seqKmer.cpp:102-106).  The one writer of the layout."""
+    np.bitwise_or.at(bitmap, (idx // 8).astype(np.int64),
+                     (np.uint8(1) << (7 - (idx % 8)).astype(np.uint8)))
 
 
 def bitmap_get(bitmap: np.ndarray, idx) -> np.ndarray:

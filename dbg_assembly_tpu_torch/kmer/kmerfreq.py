@@ -22,6 +22,7 @@ import numpy as np
 from .. import spans
 from ..io import cz as czio
 from ..io import fastq, stat as statio
+from ..io.lib import read_file_list
 from . import count as kc
 
 
@@ -74,8 +75,6 @@ def run(lib_path: str, ksize: int = 17, low_freq_cutoff: int = 1,
     if table_format not in ("1bit", "8bit"):
         raise ValueError(f"table_format must be '1bit' or '8bit', not "
                          f"{table_format!r}")
-    from ..contig.pipeline import read_file_list
-
     prefix = out_prefix or (lib_path + ".kmer.freq")
     counter = kc.KmerCounter(ksize, batch_reads=batch_reads, device=device)
     for path in read_file_list(lib_path):

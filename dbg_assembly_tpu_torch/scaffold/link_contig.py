@@ -25,7 +25,7 @@ import gzip
 import numpy as np
 
 from .. import native
-from ..contig.pipeline import read_file_list
+from ..io.lib import read_file_list
 from .link import (LinkGraph, get_pair_id, parse_read_ends_map_file,
                    read_contig_file, rev_comp)
 

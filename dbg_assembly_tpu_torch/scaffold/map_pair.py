@@ -18,8 +18,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import resolve_device
-from ..contig.pipeline import read_file_list
 from ..io import fastq, stat as statio
+from ..io.lib import read_file_list
 from . import index as ixmod
 
 HEADER_PAIR = (b"#read_id\tread_length\talign_read_start\talign_read_end\t"

@@ -18,8 +18,8 @@ import os
 import numpy as np
 
 from .. import resolve_device
-from ..contig.pipeline import read_file_list
 from ..io import fastq, stat as statio
+from ..io.lib import read_file_list
 from . import index as ixmod
 from .map_pair import HEADER_ONE, HEADER_PAIR, _fmt_line, _read_id, \
     read_contig_fasta

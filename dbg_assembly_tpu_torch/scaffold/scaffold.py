@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
-from ..contig.pipeline import read_file_list
+from ..io.lib import read_file_list
 from .link import (LinkGraph, get_pair_id, parse_pair_map_file,
                    read_contig_file, rev_comp)
 

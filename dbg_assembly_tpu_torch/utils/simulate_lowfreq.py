@@ -18,6 +18,7 @@ import numpy as np
 
 from .. import dna
 from ..io.stat import fmt_g6
+from ..kmer.count import bitmap_get, bitmap_set
 
 
 def read_fasta_seqs(path: str):
@@ -57,13 +58,11 @@ def run(genome_fa: str, ksize: int = 17, skip: int = 100, out=None):
         km = dna.rolling_kmers(codes, ksize)
         rc = dna.revcomp_kbit(km, ksize)
         for idx in (km, rc):
-            np.bitwise_or.at(bitmap, (idx >> np.uint64(3)).astype(np.int64),
-                             np.uint8(1) << (7 - (idx & np.uint64(7)))
-                             .astype(np.uint8))
+            bitmap_set(bitmap, idx)
     # the reference scans idx in [0, 4^k-1) — the all-T k-mer is excluded
     # from the species count (simulate_lowfreq_kmer.cpp loop bound quirk)
     species = int(np.unpackbits(bitmap[:(total + 1) // 8]).sum())
-    if (bitmap[total >> 3] >> (7 - (total & 7))) & 1:
+    if bitmap_get(bitmap, total):
         species -= 1
 
     out.write(f"The Genome size is:  {genome_bp}\n")
@@ -83,9 +82,7 @@ def run(genome_fa: str, ksize: int = 17, skip: int = 100, out=None):
         mid = ksize - 1
         frags[:, mid] = (frags[:, mid] + 1) % 4
         km = dna.rolling_kmers(frags, ksize)                # [n, ksize]
-        bits = (bitmap[(km >> np.uint64(3)).astype(np.int64)]
-                >> (7 - (km & np.uint64(7))).astype(np.uint8)) & 1
-        nlow = (bits == 0).sum(axis=1)
+        nlow = (bitmap_get(bitmap, km) == 0).sum(axis=1)
         freq_nums += np.bincount(nlow, minlength=ksize + 1)
 
     total_group = int(freq_nums.sum())

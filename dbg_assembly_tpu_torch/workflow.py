@@ -113,8 +113,7 @@ def scaffold_iterative(contig_fa: str, para_path: str,
                        cfg: PipelineConfig, out_dir: str) -> str:
     """Iterative scaffolding per .para recipe, shortest insert first.
     Returns the final scaffold FASTA path."""
-    from .contig.pipeline import read_file_list
-    from .io.lib import read_para
+    from .io.lib import read_file_list, read_para
     from .scaffold import map_pair, scaffold as scf
 
     rows = sorted(read_para(para_path), key=lambda r: r.scaf_rank)

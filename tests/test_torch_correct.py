@@ -146,25 +146,19 @@ def _bbt_args(kind, rightward, k, a, lens, one, hs1, he1, num_h):
 
 @pytest.mark.parametrize("kind", ["gap", "end"])
 @pytest.mark.parametrize("rightward", [True, False])
-@pytest.mark.parametrize("probe_word", [True, False])
-def test_bbt_impl(kind, rightward, probe_word):
-    """One beam call both ways, with and without the one-word probe, on a
+def test_bbt_impl(kind, rightward):
+    """One beam call both ways, its children probed one word a lane, on a
     table dense enough that beams overflow."""
     a, c, lens, bm, k = _case(2, n_err_max=8, dens=0.2, n_reads=200)
     j, _ = _stage_a_both(a, c, lens, bm, k)
     asc = np.asarray(j[0])
     args = _bbt_args(kind, rightward, k, asc, lens, *j[1:5])
     kw = dict(k=k, rightward=rightward, is_modify_trimmed=(kind == "end"))
-    jw = jdev.bitmap_device(bm)
     jargs = [jnp.asarray(x) for x in (asc, lens, *args)]
-    if probe_word:
-        want = jdev._bbt_batch(jargs[0], jargs[1], jw, *jargs[2:], **kw)
-    else:
-        want = jdev._bbt_impl(jargs[0], jargs[1],
-                              lambda idx: jdev._probe(jw, idx), *jargs[2:],
-                              **kw)
+    want = jdev._bbt_batch(jargs[0], jargs[1], jdev.bitmap_device(bm),
+                           *jargs[2:], **kw)
     got = tdev._bbt_impl(_t(asc), _t(lens), tdev.bitmap_device(bm, "cpu"),
-                         *[_t(x) for x in args], probe_word=probe_word, **kw)
+                         *[_t(x) for x in args], **kw)
     _same(want, got, ["ascii", "num", "len_need_trim", "last_change",
                       "overflow"])
     assert np.asarray(want[1]).sum() > 0
@@ -455,6 +449,52 @@ def test_correct_file(tmp_path, fasta):
     tpipe.correct_file(path, bm, TPARAMS, fmt=fmt, device="cpu", chunk=16)
     assert _outputs(path) == want["jax"]
     assert tdev.counts["batches"] == -(-len(seqs) // 16)
+
+
+@pytest.mark.parametrize("fasta", [False, True])
+def test_correct_file_all_rows_fall_back(tmp_path, monkeypatch, fasta):
+    """Every row the device engine returns flagged: the host fallback
+    re-runs each from its original read, the reads shorter than k and the
+    empty one among them, and writes the JAX package's bytes."""
+    seqs, bm = _odd_reads()
+    path = str(tmp_path / ("r.fa" if fasta else "r.fq.gz"))
+    _write_reads(path, seqs, fasta=fasta, gz=not fasta)
+    fmt = 2 if fasta else 1
+    jpipe.correct_file(path, bm, PARAMS, fmt=fmt, engine="jax")
+    want = _outputs(path)
+    real = tdev.correct_batch_device
+
+    def flag_all(*a, **kw):
+        out = real(*a, **kw)
+        return out[:-1] + (np.ones(len(out[-1]), bool),)
+    monkeypatch.setattr(tdev, "correct_batch_device", flag_all)
+    tdev.reset_counts()
+    spans.reset()
+    tpipe.correct_file(path, bm, TPARAMS, fmt=fmt, device="cpu", chunk=16)
+    assert _outputs(path) == want
+    assert tdev.counts["fallback"] == len(seqs)
+    assert [r.counts["rows"] for r in spans.records()
+            if r.name == "correct.fallback"] == [16, 16, 16, 12]
+
+
+@pytest.mark.parametrize("fasta", [False, True])
+def test_correct_file_8bit(tmp_path, fasta):
+    """correct_error's per-file step on reads shorter than k, an empty
+    read, reads with N and deleted reads: the JAX package's .cor and
+    .cor.stat."""
+    seqs, bm = _odd_reads()
+    path = str(tmp_path / ("r.fa" if fasta else "r.fq.gz"))
+    _write_reads(path, seqs, fasta=fasta, gz=not fasta)
+    fmt = 2 if fasta else 1
+    out = {}
+    for pipe, params in ((jpipe, PARAMS), (tpipe, TPARAMS)):
+        pipe.correct_file_8bit(path, bm, params, fmt)
+        with gzip.open(path + ".cor") as f, open(path + ".cor.stat",
+                                                 "rb") as g:
+            out[pipe] = f.read(), g.read()
+    assert out[tpipe] == out[jpipe]
+    assert b"num_deleted_reads 0\n" not in out[jpipe][1]
+    assert b"\n\n" in out[jpipe][0]             # a deleted read's line
 
 
 @pytest.mark.parametrize("fasta", [False, True])

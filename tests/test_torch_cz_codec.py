@@ -1,7 +1,8 @@
-"""The .cz table codec on a pool of host threads (dbg_assembly_tpu_torch/
-io/cz.py): the .cz and .cz.len bytes are a serial zlib loop's at every
-worker count, the reader gives each table back exactly, and a damaged
-table raises as the serial reader does."""
+"""The .cz table codec on the host pool (dbg_assembly_tpu_torch/io/cz.py
+on io/pool.py): the .cz and .cz.len bytes are a serial zlib loop's at
+every worker count, the reader gives each table back exactly, a damaged
+table raises as the serial reader does, and the pool keeps its order and
+its bound."""
 
 import sys
 import zlib
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 
 from dbg_assembly_tpu_torch import spans
-from dbg_assembly_tpu_torch.io import cz
+from dbg_assembly_tpu_torch.io import cz, pool
 
 BITS = cz.SRC_BLOCK_KMERS // 8          # source block of the 1-bit table
 BYTES = cz.SRC_BLOCK_KMERS              # of the 8-bit table
@@ -29,7 +30,7 @@ def _fresh():
 
 def _cores(monkeypatch, n):
     """The process may run on n cores."""
-    monkeypatch.setattr(cz.os, "sched_getaffinity",
+    monkeypatch.setattr(pool.os, "sched_getaffinity",
                         lambda pid: set(range(n)))
 
 
@@ -184,7 +185,7 @@ def test_stress_more_workers_than_cores(tmp_path, monkeypatch):
 
 def test_workers_follow_cores_and_blocks(monkeypatch):
     _cores(monkeypatch, 3)
-    assert [cz._workers(b) for b in (0, 1, 2, 3, 10)] == [1, 1, 2, 3, 3]
+    assert [pool.workers(b) for b in (0, 1, 2, 3, 10)] == [1, 1, 2, 3, 3]
 
 
 def test_one_block_runs_without_a_pool(tmp_path, monkeypatch):
@@ -194,7 +195,7 @@ def test_one_block_runs_without_a_pool(tmp_path, monkeypatch):
 
     def no_pool(*a, **kw):
         raise AssertionError("a pool for one block")
-    monkeypatch.setattr(cz, "ThreadPoolExecutor", no_pool)
+    monkeypatch.setattr(pool, "ThreadPoolExecutor", no_pool)
     table = _table(BITS, 5, "bits")
     path = str(tmp_path / "t.cz")
     cz.write_cz_bits(path, table)
@@ -210,8 +211,8 @@ def test_in_flight_bound(monkeypatch):
     def fn(i):
         started.append(i)
         return i * i
-    for r in cz._in_order(fn, range(100), 2):
-        assert len(started) <= len(got) + cz.IN_FLIGHT * 2
+    for r in pool.in_order(fn, range(100), 2):
+        assert len(started) <= len(got) + pool.IN_FLIGHT * 2
         got.append(r)
     assert got == [i * i for i in range(100)]
 
@@ -226,6 +227,6 @@ def test_raise_in_a_worker_reaches_the_caller_in_order():
             raise ValueError(i)
         return i
     with pytest.raises(ValueError) as err:
-        for r in cz._in_order(fn, range(40), 4):
+        for r in pool.in_order(fn, range(40), 4):
             got.append(r)
     assert got == [0, 1, 2, 3, 4] and err.value.args == (5,)

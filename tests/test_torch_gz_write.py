@@ -1,7 +1,7 @@
-"""gz_write_bytes on the .cz codec's pool of host threads
-(dbg_assembly_tpu_torch/io/fastq.py): one gzip member whose bytes follow
-the input and the level alone, whatever the worker count; an input of one
-chunk or less is the serial zlib stream's bytes exactly."""
+"""gz_write_bytes on the host pool (dbg_assembly_tpu_torch/io/fastq.py on
+io/pool.py): one gzip member whose bytes follow the input and the level
+alone, whatever the worker count; an input of one chunk or less is the
+serial zlib stream's bytes exactly."""
 
 import functools
 import gzip
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 from dbg_assembly_tpu_torch import spans
-from dbg_assembly_tpu_torch.io import cz, fastq
+from dbg_assembly_tpu_torch.io import fastq, pool
 
 CHUNK = fastq.GZ_CHUNK
 WORKERS = [1, 2, 8]
@@ -169,7 +169,7 @@ def test_one_chunk_runs_without_a_pool(tmp_path, monkeypatch):
 
     def no_pool(*a, **kw):
         raise AssertionError("a pool for one chunk")
-    monkeypatch.setattr(cz, "ThreadPoolExecutor", no_pool)
+    monkeypatch.setattr(pool, "ThreadPoolExecutor", no_pool)
     data = _text(CHUNK)
     assert _write(tmp_path, data) == _serial(data)
 

@@ -24,6 +24,7 @@ import torch
 
 from dbg_assembly_tpu import cli as jcli
 from dbg_assembly_tpu import dna as jdna
+from dbg_assembly_tpu.contig import pipeline as jcpipe
 from dbg_assembly_tpu.io import lib as jlib
 from dbg_assembly_tpu.scaffold import index as jix
 from dbg_assembly_tpu.scaffold import map_pair as jmp
@@ -222,6 +223,21 @@ def test_read_helpers(tmp_path):
                     "3 31 5\n")
     assert [vars(r) for r in tlib.read_para(str(para))] == \
         [vars(r) for r in jlib.read_para(str(para))]
+
+
+@pytest.mark.parametrize("newline", ["\n", "\r\n", None])
+def test_read_file_list(tmp_path, newline):
+    """The .lib reader of every stage (io/lib.py) against the JAX
+    package's (contig/pipeline.py) on blank lines, lines of spaces and
+    trailing whitespace; newline None ends the file without one."""
+    lines = ["a.fq", "", "b.fq  ", "   ", "\tc.fq", "", "d e.fq\t"]
+    text = (newline or "\n").join(lines)
+    lib = tmp_path / "x.lib"
+    lib.write_bytes((text + (newline or "")).encode())
+    got = tlib.read_file_list(str(lib))
+    assert got == jcpipe.read_file_list(str(lib))
+    assert len(got) == 5 and got[2] == "   "   # text mode reads CRLF as LF
+    assert tpipe.read_file_list is tlib.read_file_list
 
 
 # ------------------------------------------------------------ file level
