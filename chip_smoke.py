@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. device: a CUDA card must be present; prints the nvidia-smi name and
      power limit and the CUDA version;
   2. build: the chop kernel (ops/csrc/chop.cu), the radix sort
-     (ops/csrc/radix_sort.cu) and the seven triage probes
+     (ops/csrc/radix_sort.cu), the rc expand (ops/csrc/rc_expand.cu) and
+     the seven triage probes
      (ops/csrc/probe_*.cu), one nvcc each, and native/ (make), all started
      together; prints ptxas's registers, shared memory and spills per
      kernel;
@@ -47,7 +48,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      once with torch.profiler (the kernel's own device time) and by the
      host time a call takes to return, at the main path's shapes:
      kmerfreq's batch (200 000 x 150, k = 17, counting), ingest's
-     (100 000 x 150, k = 31, edges) and the latter counted;
+     (100 000 x 150, k = 31, edges) and the latter counted; then the rc
+     expand against rc_expand_plain and the numpy expand_bitmap_rc,
+     exact, at k 3 (its scalar path), 9 and 13 (4 bytes past alignment
+     too, every bit set), and on a k = 17 table of about 6 M random
+     canonical k-mers, where it is timed (CUDA events, the table restored
+     before each launch; the profiler's kernel time) beside its bound,
+     the plain twin and the host expand;
   6. the slice at E. coli scale: a 4.6 Mb simulated genome, 150 bp pairs at
      40x, written as two FASTQ files;
   7. sort vs plain on the card: the radix sort against sort_plain on the
@@ -815,6 +822,98 @@ def phase_kernel(chop) -> dict:
     return rec
 
 
+def _timed_in_place(fn, raw: torch.Tensor, words: torch.Tensor,
+                    iters: int) -> float:
+    """Mean CUDA-event ms of fn() over iters calls, each on ``words``
+    restored from ``raw`` first (the copy outside the events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        words.copy_(raw)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def phase_rc_expand(rce) -> dict:
+    """The rc expand kernel against rc_expand_plain on the card, exact, at
+    its scalar paths and on a k = 17 table against the numpy expand; then
+    timed there in turns beside its bound and the plain twin."""
+    from dbg_assembly_tpu_torch import dna
+    from dbg_assembly_tpu_torch.kmer import count as kc
+    rng = np.random.default_rng(24)
+    for what, k, dens, off in (("k=3, two words (scalar path)", 3, 0.3, 0),
+                               ("k=9", 9, 0.02, 0),
+                               ("k=13", 13, 0.01, 0),
+                               ("k=13 at 4 B past alignment", 13, 0.01, 1),
+                               ("k=13, every bit", 13, 1.0, 0)):
+        raw = np.packbits(rng.random(4 ** k) < dens)
+        buf = torch.zeros(4 ** k // 32 + off, dtype=torch.int32,
+                          device="cuda")
+        words = buf[off:]
+        words.copy_(torch.from_numpy(raw.view("<i4")))
+        want = rce.rc_expand_plain(words, k)
+        got = rce.rc_expand(words, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not np.array_equal(
+                got.cpu().numpy().view(np.uint8),
+                kc.expand_bitmap_rc(raw, k)):
+            raise AssertionError(f"rc_expand kernel differs from the plain "
+                                 f"twin or the numpy expand ({what})")
+    _log("rc_expand kernel == rc_expand_plain == expand_bitmap_rc on the "
+         "card: k 3 (two words), 9, 13 (aligned, 4 B past alignment, every "
+         "bit set)")
+
+    # the main path's table: k = 17, 2 GiB, about 6 M canonical k-mers
+    k = 17
+    t = time.perf_counter()
+    idx = rng.integers(0, 4 ** k, 6_000_000).astype(np.uint64)
+    raw = np.zeros(4 ** k // 8, np.uint8)
+    kc.bitmap_set(raw, np.minimum(idx, dna.revcomp_kbit(idx, k)))
+    host_s = _timed(kc.expand_bitmap_rc, raw, k)
+    want = kc.expand_bitmap_rc(raw, k)
+    _log(f"k=17 table: {time.perf_counter() - t:.1f} s to make, host "
+         f"expand_bitmap_rc {host_s:.3f} s")
+    raw_dev = torch.from_numpy(raw.view("<i4")).cuda()
+    words = raw_dev.clone()
+    rce.rc_expand(words, k)
+    torch.cuda.synchronize()
+    if not np.array_equal(words.cpu().numpy().view(np.uint8), want):
+        raise AssertionError("rc_expand kernel differs from the numpy "
+                             "expand at k=17")
+    plain = rce.rc_expand_plain(raw_dev, k)
+    if not torch.equal(plain, words):
+        raise AssertionError("rc_expand_plain differs from the kernel at "
+                             "k=17")
+    set_bits = int(np.unpackbits(raw).sum())
+    changed = int((plain != raw_dev).sum())
+    del plain, want
+    ms = [_timed_in_place(lambda: rce.rc_expand(words, k), raw_dev, words,
+                          10) for _ in range(2)]
+    plain_ms = [_timed_in_place(lambda: rce.rc_expand_plain(words, k),
+                                raw_dev, words, 2) for _ in range(2)]
+    dev_ms = _profiled_ms(lambda: (words.copy_(raw_dev),
+                                   rce.rc_expand(words, k)),
+                          "rc_expand_kernel")
+    # bytes: the table read once, each word the expand changes written once
+    bound_ms, bound_by = _bound(4 ** k // 8 + 4 * changed)
+    _log(f"rc_expand k=17: kernel {ms[0]:.4f} / {ms[1]:.4f} ms, plain "
+         f"{plain_ms[0]:.2f} / {plain_ms[1]:.2f} ms, profiler device time "
+         f"{dev_ms} ms; bound {bound_ms:.4f} ms ({bound_by}); {set_bits} "
+         f"bits set, {changed} words changed; launches {rce.launches}")
+    del words, raw_dev
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0, "ms_k17": sum(ms) / 2,
+            "plain_ms_k17": sum(plain_ms) / 2, "device_ms_k17": dev_ms,
+            "bound_ms_k17": bound_ms, "bound_by_k17": bound_by,
+            "host_expand_s_k17": host_s, "set_bits_k17": set_bits,
+            "words_changed_k17": changed, "library_ms": None}
+
+
 # ---------------------------------------------------------------- phase 6
 def _write_fastq(path: str, mate: int, reads: np.ndarray,
                  quals: np.ndarray) -> None:
@@ -1086,22 +1185,28 @@ def phase_correct(workdir: str, cz: str, name: str, files: list[str],
     from dbg_assembly_tpu_torch import cli
     from dbg_assembly_tpu_torch.correct import device as cdev
     from dbg_assembly_tpu_torch.correct import pipeline
+    from dbg_assembly_tpu_torch.ops import rc_expand as rce
     lib, files = _mirror(files, os.path.join(workdir, name, "torch"))
     nlib, nfiles = _mirror(files, os.path.join(workdir, name, "native"))
     argv = ["correct_error_reads", "-k", "17", "-j", "1", cz]
     for mod in kernels.values():
         mod.launches = 0
     cdev.reset_counts()
+    rc0 = rce.launches
     title = f"correct_error_reads -k 17 -j 1 ({name}, torch engine)"
     wall = _phase_wall(title, lambda: cli.main(argv + [lib, "--device",
                                                        "cuda"]))
     c = dict(cdev.counts)
+    if rce.launches - rc0 != 1:
+        raise AssertionError(f"{name}: the table's rc expand launched "
+                             f"{rce.launches - rc0} times, not once")
     share = c["fallback"] / n_reads
     _log(f"{title}: {n_reads} reads, {n_reads / wall:.1f} reads/s; "
          f"{c['batches']} chunks of up to {pipeline.DEFAULT_CHUNK} reads, "
          f"{c['waves']} waves, {c['bbt_calls']} beam calls, {c['trips']} "
          f"trips, {c['host_reads']} host reads; fallback {c['fallback']} "
-         f"reads, share {share:.6f}; kernel launches "
+         f"reads, share {share:.6f}, host table copies "
+         f"{c['host_table']}; rc_expand launches 1; kernel launches "
          f"{ {n: m.launches for n, m in kernels.items()} } (none on this "
          "path)")
     _phase_wall(f"correct_error_reads -k 17 -j 1 ({name}, native engine)",
@@ -2785,6 +2890,7 @@ def main() -> int:
     try:
         from dbg_assembly_tpu_torch import native
         from dbg_assembly_tpu_torch.ops import build, chop, probes
+        from dbg_assembly_tpu_torch.ops import rc_expand as rce
         from dbg_assembly_tpu_torch.ops import sort as srt
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -2796,7 +2902,8 @@ def main() -> int:
          f"{torch.cuda.get_device_name(0)}")
 
     # one nvcc per kernel source and make for native/, all at once
-    sources = ["chop", "radix_sort", *("probe_" + n for n in probes.PROBES)]
+    sources = ["chop", "radix_sort", "rc_expand",
+               *("probe_" + n for n in probes.PROBES)]
     with ThreadPoolExecutor(max_workers=len(sources) + 1) as ex:
         jobs = {f"{src}.cu (nvcc)": ex.submit(_timed, build.build, src)
                 for src in sources}
@@ -2811,6 +2918,7 @@ def main() -> int:
     probe_recs = phase_probes(probes)
     _log(f"phase 4: {time.perf_counter() - t:.1f} s")
     kern = phase_kernel(chop)
+    rc_rec = phase_rc_expand(rce)
 
     with tempfile.TemporaryDirectory() as workdir:
         t = time.perf_counter()
@@ -2903,6 +3011,12 @@ def main() -> int:
          "launches_hosttwins": twin_launches["radix_sort"],
          "launches_hooks": hook_launches["radix_sort"],
          **sort_rec}]
+    records.append({
+        "name": "rc_expand", "route": "cuda",
+        "source": "dbg_assembly_tpu_torch/ops/csrc/rc_expand.cu",
+        "replaces": "none: host numpy, dbg_assembly_tpu/kmer/count.py "
+                    "expand_bitmap_rc",
+        "launches": rce.launches, **rc_rec})
     for name, p in probes.PROBES.items():
         records.append({
             "name": f"probe_{name}", "route": "cuda",

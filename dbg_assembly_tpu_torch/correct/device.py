@@ -59,10 +59,11 @@ UNROLL = 8
 
 # what the engine did since the last reset_counts(): batches, gap waves,
 # beam calls and their loop trips, host reads (device -> host syncs that
-# decide control flow), and the rows re-run on the host engine (counted by
+# decide control flow), the rows re-run on the host engine and the copies
+# of the device's table to the host for them (both counted by
 # correct/pipeline.py); the smoke test prints them
 counts = {"batches": 0, "waves": 0, "bbt_calls": 0, "trips": 0,
-          "host_reads": 0, "fallback": 0}
+          "host_reads": 0, "fallback": 0, "host_table": 0}
 
 
 def reset_counts() -> None:

@@ -16,16 +16,26 @@ corrector, native/correct_engine.cpp), "python" (the host engine,
 correct/engine.py).  "auto" is "torch".  A mesh of N slots (mesh_devices)
 runs the torch engine with the table sharded and the reads data-parallel
 (correct/sharded.py).
+
+The 1-bit table's reverse-complement bits are ORed in on the host
+(load_bitmap), but where the torch engine puts the table on one device:
+there the raw bits are uploaded and the kernel ops/rc_expand.py expands
+them in place, and the host fallback reads the device's table, copied back
+the first time a row falls back (_host_table).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 from .. import dna, resolve_device, spans
 from ..io import cz as czio, fastq, stat as statio
 from ..io.lib import read_file_list
 from ..kmer import count as kc
+from ..ops import rc_expand
 from . import device as dev_engine
 from .engine import CorrectParams, ReadCorrector, classify_regions_batch
 
@@ -65,8 +75,10 @@ def correct_batch_torch(batch, bitmap: np.ndarray, p: CorrectParams,
     with host fallback: every row the engine flags is re-run on the host
     engine from the ORIGINAL read, which keeps the output byte-exact.
     words: the table already on the device (device.bitmap_device), else it
-    is uploaded here.  The last chunk is not padded to ``chunk`` rows
-    (torch compiles nothing per shape).  mesh: the sharded engine
+    is uploaded here; with words given, ``bitmap`` may be a function that
+    returns the host table (_host_table), called when a row falls back.
+    The last chunk is not padded to ``chunk`` rows (torch compiles nothing
+    per shape).  mesh: the sharded engine
     (sharded.correct_batch_sharded), ``words`` then the table's slots
     (sharded.shard_bitmap) and a chunk ``chunk`` reads a slot."""
     if mesh is not None:
@@ -96,7 +108,8 @@ def correct_batch_torch(batch, bitmap: np.ndarray, p: CorrectParams,
         if len(flagged) == 0:
             continue
         with spans.span("correct.fallback", rows=len(flagged)):
-            _host_correct(batch, flagged, bitmap, p, outs)
+            _host_correct(batch, flagged,
+                          bitmap() if callable(bitmap) else bitmap, p, outs)
             dev_engine.counts["fallback"] += len(flagged)
     return outs
 
@@ -205,7 +218,8 @@ def correct_file(path: str, bitmap: np.ndarray, params: CorrectParams,
     """Correct one read file and write its .correct.fa.gz and
     .correct.stat.  engine as in the module docstring; device, words (the
     table on the device, or its slots with a mesh) and mesh serve the
-    torch engine."""
+    torch engine; with words given, ``bitmap`` may be a function that
+    returns the host table (correct_batch_torch)."""
     engine = _engine(engine)
     p = params.resolved()
     batch = fastq.read_batch(path, fmt="fq" if fmt == 1 else "fa",
@@ -234,9 +248,11 @@ def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
         fmt: int = 1, engine: str = "auto", mesh_devices: int = 0,
         device="cuda") -> list[dict]:
     """correct_error_reads over every file of the .lib list.  The torch
-    engine puts the table on ``device`` once for all files.  mesh_devices
-    > 0 shards it over that many slots on ``device`` (the k > 17 capacity
-    path), which implies the torch engine."""
+    engine puts the table on ``device`` once for all files, its raw bits
+    expanded there (_expand_table), and hands the host fallback the
+    device's table (_host_table).  mesh_devices > 0 shards the host-expanded
+    table over that many slots on ``device`` (the k > 17 capacity path: a
+    bit's rc may lie in another slot), which implies the torch engine."""
     mesh = None
     if mesh_devices:
         from ..parallel import mesh as meshmod
@@ -247,17 +263,53 @@ def run(cz_path: str, lib_path: str, params: CorrectParams | None = None,
     dev = resolve_device(device) if engine == "torch" else None
     if params is None:
         params = CorrectParams()
-    with spans.span("correct.table_load"):
-        bitmap = load_bitmap(cz_path, params.ksize)
-        spans.add(bytes=bitmap.nbytes)
     words = None
-    if mesh is not None or dev is not None:
-        with spans.span("correct.table_upload", bytes=bitmap.nbytes):
-            words = (shard_bitmap(mesh, bitmap) if mesh is not None
-                     else dev_engine.bitmap_device(bitmap, dev))
+    if dev is not None and mesh is None:
+        # the table on one device: its rc bits are ORed in there
+        with spans.span("correct.table_load"):
+            raw = czio.read_cz_bits(cz_path, params.ksize)
+            spans.add(bytes=raw.nbytes)
+        with spans.span("correct.table_upload", bytes=raw.nbytes):
+            words = _expand_table(
+                dev_engine.bitmap_device(raw, dev), params.ksize)
+        del raw
+        bitmap = _host_table(words)
+    else:
+        with spans.span("correct.table_load"):
+            bitmap = load_bitmap(cz_path, params.ksize)
+            spans.add(bytes=bitmap.nbytes)
+        if mesh is not None:
+            with spans.span("correct.table_upload", bytes=bitmap.nbytes):
+                words = shard_bitmap(mesh, bitmap)
     return [correct_file(path, bitmap, params, fmt, engine, mesh, dev,
                          words)
             for path in read_file_list(lib_path)]
+
+
+def _expand_table(words: torch.Tensor, ksize: int) -> torch.Tensor:
+    """The uploaded raw table (device.bitmap_device) with its rc bits ORed
+    in on its device (ops/rc_expand.py: in place on the card, a new tensor
+    on the CPU), the device synchronised at the end, so that the kernel's
+    time is the span's."""
+    with spans.span("correct.table_expand", words=words.numel()):
+        launched = rc_expand.launches
+        words = rc_expand.rc_expand(words, ksize)
+        if words.is_cuda:
+            torch.cuda.synchronize(words.device)
+        spans.add(launches=rc_expand.launches - launched)
+    return words
+
+
+def _host_table(words: torch.Tensor):
+    """A function that returns the device's expanded table as host bytes,
+    for the host fallback: copied from the device at its first call, once
+    a run, and kept (a run with no fallback never copies it)."""
+    @functools.cache
+    def fetch() -> np.ndarray:
+        with spans.span("correct.host_table", bytes=words.numel() * 4):
+            dev_engine.counts["host_table"] += 1
+            return words.cpu().numpy().view(np.uint8)
+    return fetch
 
 
 def correct_file_8bit(path: str, bitmap: np.ndarray, params: CorrectParams,

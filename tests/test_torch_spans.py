@@ -23,6 +23,7 @@ IO = {"io.parse", "io.gzip", "io.cz_write", "io.cz_read"}
 COUNTING = {"kmerfreq.qsplit", "kmerfreq.count", "kmerfreq.finalize",
             "kmerfreq.table_write"}
 CORRECTION = {"correct.table_load", "correct.table_upload",
+              "correct.table_expand", "correct.host_table",
               "correct.engine", "correct.fallback", "correct.format"}
 DOUBLING = {"contig.doubling." + s for s in (
     "graph_init", "calc_links", "kmer.freq", "tips", "lowedges", "bubbles",
@@ -252,14 +253,21 @@ def test_chain_spans(library, tmp_path):
                lib + ".kmer.freq.cz", lib])
     names = _names(co)
     assert {"correct.table_load", "io.cz_read", "correct.table_upload",
-            "io.parse", "correct.engine", "correct.format",
-            "io.gzip"} <= names <= {"correct.table_load", "io.cz_read",
-                                    "correct.table_upload", "io.parse",
-                                    "correct.engine", "correct.fallback",
-                                    "correct.format", "io.gzip"}
+            "correct.table_expand", "io.parse", "correct.engine",
+            "correct.format", "io.gzip"} <= names <= {
+                "correct.table_load", "io.cz_read", "correct.table_upload",
+                "correct.table_expand", "io.parse", "correct.engine",
+                "correct.fallback", "correct.host_table", "correct.format",
+                "io.gzip"}
     by = {r.name: r for r in co}
     assert by["io.cz_read"].parent == by["correct.table_load"].index
     assert by["correct.table_load"].counts["bytes"] == 4 ** 13 // 8
+    # the rc expand on the device, inside the upload, so that
+    # span_s.table_load still covers the whole table build
+    assert (by["correct.table_expand"].parent
+            == by["correct.table_upload"].index)
+    assert by["correct.table_expand"].counts == {"words": 4 ** 13 // 32,
+                                                 "launches": 0}
     assert by["io.cz_read"].counts["blocks"] == 8
     assert by["io.cz_read"].counts["workers"] >= 1
     assert {r.thread for r in co} == {co[0].thread}
