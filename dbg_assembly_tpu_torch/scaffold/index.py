@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import dna, native, resolve_device
+from .. import dna, native, resolve_device, spans
 from ..ops import sort as srt
 
 # k-mer windows a device batch: 131 072 reads of 150 bases at k = 31.  The
@@ -77,12 +77,28 @@ def build(contig_seqs: list[bytes], ksize: int, engine: str = "torch",
     payload of each run kept, ``uniq`` a run of one.  The native engine
     builds it inside the C++ engine (its arrays here are empty).
     DBG_PY_MAP=1 builds it with _build_py on the host, whatever the
-    engine."""
+    engine.  Inside the span ``scaffold.index``, which on the torch engine
+    ends on an idle device (the count of unique k-mers is its one read of
+    the device), so that the sort is charged to the index and not to the
+    first map chunk."""
     if not 1 <= ksize <= 31:
         raise ValueError(f"k = {ksize}: the port's k-mers are int64, "
                          "1 <= k <= 31")
     if engine not in ("torch", "native"):
         raise ValueError(f"unknown map engine {engine!r}")
+    with spans.span("scaffold.index", contigs=len(contig_seqs)):
+        ix = _build_engine(contig_seqs, ksize, engine, device)
+        if ix.engine != "native":
+            # on the device the count waits for every launch of the
+            # build: the span's one read of it
+            spans.add(kmers=len(ix.kmers), unique=int(ix.uniq.sum()))
+    return ix
+
+
+def _build_engine(contig_seqs: list[bytes], ksize: int, engine: str,
+                  device) -> ContigIndex:
+    """build's work on its engine; counts the windows of the torch
+    engine's sort in the span open."""
     if os.environ.get("DBG_PY_MAP") == "1":
         return _build_py(contig_seqs, ksize)
     if engine == "native":
@@ -99,6 +115,7 @@ def build(contig_seqs: list[bytes], ksize: int, engine: str = "torch",
     kmers, order = srt.sort(can, 2 * ksize, return_index=True)
     ids, pos, direct = ids[order], pos[order], direct[order]
     n = kmers.shape[0]
+    spans.add(windows=n)
     first = torch.ones(n, dtype=torch.bool, device=kmers.device)
     first[1:] = kmers[1:] != kmers[:-1]
     starts = torch.nonzero(first)[:, 0]
@@ -265,27 +282,41 @@ def map_reads(ix: ContigIndex, codes: np.ndarray, ascii_seq: np.ndarray,
 
     search_start: scalar or per-read array of 1-based positions to begin the
     seed scan (map_reads' second-alignment pass uses align_read_end+1,
-    map_reads.cpp:484)."""
+    map_reads.cpp:484).  Inside the span ``scaffold.map``."""
     N = codes.shape[0]
     ss = np.asarray(search_start)
     if ss.ndim == 0:
         ss = np.full(N, int(ss), np.int64)
+    with spans.span("scaffold.map", reads=N):
+        r, chunks = _map_engine(ix, codes, ascii_seq, lengths,
+                                seed_kmer_num, min_identity, ss, chunk)
+        spans.add(chunks=chunks, mapped=int(r.mapped.sum()))
+    return r
+
+
+def _map_engine(ix: ContigIndex, codes, ascii_seq, lengths,
+                seed_kmer_num: int, min_identity: float, ss: np.ndarray,
+                chunk: int | None) -> tuple[MapResult, int]:
+    """map_reads' work on the index's engine; returns the result and the
+    device batches it took (one on the host engines)."""
+    N = codes.shape[0]
     if ix.engine == "native":
         mapped, cid, rs, re_, cs, ce, dr, ident = ix.native.map(
             codes, ascii_seq, lengths, ss, seed_kmer_num, min_identity)
         return MapResult(mapped=mapped.astype(bool), contig=cid,
                          read_start=rs, read_end=re_, contig_start=cs,
-                         contig_end=ce, direct=dr, identity=ident)
+                         contig_end=ce, direct=dr, identity=ident), 1
     if ix.engine == "python":
         return _map_reads_py(ix, codes, ascii_seq, lengths, seed_kmer_num,
-                             min_identity, ss)
+                             min_identity, ss), 1
     dev = ix.kmers.device
     if chunk is None:
         windows = max(codes.shape[1] - ix.ksize + 1, 1)
         chunk = max(1, CHUNK_WINDOWS // windows)
     outs = [np.zeros(N, bool), *(np.zeros(N, np.int32) for _ in range(5)),
             np.zeros(N, np.uint8), np.zeros(N, np.float32)]
-    for off in range(0, N, chunk):
+    offs = range(0, N, chunk)
+    for off in offs:
         end = min(off + chunk, N)
 
         def put(a, dtype=None):
@@ -297,7 +328,7 @@ def map_reads(ix: ContigIndex, codes: np.ndarray, ascii_seq: np.ndarray,
                           seed_kmer_num)
         for o, r in zip(outs, res):
             o[off:end] = r.cpu().numpy()
-    return MapResult(*outs)
+    return MapResult(*outs), len(offs)
 
 
 def _map_reads_py(ix: ContigIndex, codes: np.ndarray,

@@ -8,6 +8,12 @@ independently (the first qualifying seed wins) and routes the pairs to
 (:202-206) and the .map_pair.2ctg.lib list file (:89-95).  The .gz files
 are written at zlib level 1: they are compared and consumed on their
 decompressed bytes.
+
+Spans, a pair of files each, on the command thread: ``map_pair.parse``
+(both files' decode), ``map_pair.format`` (the per-pair loop) and
+``map_pair.write`` (the three .gz files, each in its ``io.gzip``, and the
+.stat); the index and the mapper hold ``scaffold.index`` and
+``scaffold.map`` (index.py).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .. import resolve_device
+from .. import resolve_device, spans
 from ..io import fastq, stat as statio
 from ..io.lib import read_file_list
 from . import index as ixmod
@@ -126,11 +132,20 @@ def _map_pair_files(f1: str, f2: str, ix, ids, clens, out_dir: str,
     """mesh: map on its slots, ix then the index's replicas
     (sharded.replicate)."""
     lead = b"@" if fmt == 1 else b">"
-    # the pair's files decode at once (zlib and the parser release the GIL)
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        b1, b2 = ex.map(lambda f: fastq.read_batch(
-            f, fmt="fq" if fmt == 1 else "fa", strict_n=False,
-            keep_heads=True, keep_ascii=True), (f1, f2))
+
+    def decode(f):
+        return fastq.read_batch(f, fmt="fq" if fmt == 1 else "fa",
+                                strict_n=False, keep_heads=True,
+                                keep_ascii=True)
+    # the pair's files decode at once, read2 on a helper thread (zlib and
+    # the parser release the GIL)
+    with spans.span("map_pair.parse", bytes=os.path.getsize(f1)
+                    + os.path.getsize(f2)), \
+            ThreadPoolExecutor(max_workers=1) as ex:
+        fut2 = ex.submit(decode, f2)
+        b1 = decode(f1)
+        b2 = fut2.result()
+        spans.add(reads=b1.n_reads + b2.n_reads)
     n = min(b1.n_reads, b2.n_reads)
 
     len1 = b1.lengths.astype(np.int64)
@@ -155,39 +170,42 @@ def _map_pair_files(f1: str, f2: str, ix, ids, clens, out_dir: str,
     out_gap = bytearray(HEADER_ONE)    # the 1ctg stream (map_pair.cpp:204)
 
     total = diff = same = gap = none = 0
-    for i in range(n):
-        if not keep[i]:
-            continue
-        total += 1
-        m1 = bool(r1.mapped[i])
-        m2 = bool(r2.mapped[i])
-        rid1 = _read_id(b1.heads[i], lead)
-        rid2 = _read_id(b2.heads[i], lead)
-        if m1 and m2:
-            l1 = _fmt_line(rid1, int(len1[i]), r1, i, ids, clens)
-            l2 = _fmt_line(rid2, int(len2[i]), r2, i, ids, clens)
-            if int(r1.contig[i]) != int(r2.contig[i]):
-                diff += 1
-                out_diff += l1 + b"\t" + l2 + b"\n"
+    with spans.span("map_pair.format"):
+        for i in range(n):
+            if not keep[i]:
+                continue
+            total += 1
+            m1 = bool(r1.mapped[i])
+            m2 = bool(r2.mapped[i])
+            rid1 = _read_id(b1.heads[i], lead)
+            rid2 = _read_id(b2.heads[i], lead)
+            if m1 and m2:
+                l1 = _fmt_line(rid1, int(len1[i]), r1, i, ids, clens)
+                l2 = _fmt_line(rid2, int(len2[i]), r2, i, ids, clens)
+                if int(r1.contig[i]) != int(r2.contig[i]):
+                    diff += 1
+                    out_diff += l1 + b"\t" + l2 + b"\n"
+                else:
+                    same += 1
+                    out_same += l1 + b"\t" + l2 + b"\n"
+            elif m1 or m2:
+                gap += 1
+                if m1:
+                    out_gap += _fmt_line(rid1, int(len1[i]), r1, i, ids,
+                                         clens) + b"\n"
+                if m2:
+                    out_gap += _fmt_line(rid2, int(len2[i]), r2, i, ids,
+                                         clens) + b"\n"
             else:
-                same += 1
-                out_same += l1 + b"\t" + l2 + b"\n"
-        elif m1 or m2:
-            gap += 1
-            if m1:
-                out_gap += _fmt_line(rid1, int(len1[i]), r1, i, ids,
-                                     clens) + b"\n"
-            if m2:
-                out_gap += _fmt_line(rid2, int(len2[i]), r2, i, ids,
-                                     clens) + b"\n"
-        else:
-            none += 1
+                none += 1
+        spans.add(pairs=total, diff=diff, same=same, gap=gap, none=none)
 
     base = os.path.basename(f1)
-    for suf, data in ((".map_pair.2ctg.gz", out_diff),
-                      (".map_pair.1ctg.gz", out_same),
-                      (".map_pair.gap.gz", out_gap)):
-        fastq.gz_write_bytes(f"{out_dir}/{base}{suf}", bytes(data))
-    statio.write_map_pair_stat(f"{out_dir}/{base}.map_pair.stat",
-                               total, diff, same, gap, none)
+    with spans.span("map_pair.write"):
+        for suf, data in ((".map_pair.2ctg.gz", out_diff),
+                          (".map_pair.1ctg.gz", out_same),
+                          (".map_pair.gap.gz", out_gap)):
+            fastq.gz_write_bytes(f"{out_dir}/{base}{suf}", bytes(data))
+        statio.write_map_pair_stat(f"{out_dir}/{base}.map_pair.stat",
+                                   total, diff, same, gap, none)
     return dict(total=total, diff=diff, same=same, gap=gap, none=none)

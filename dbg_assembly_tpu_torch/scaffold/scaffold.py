@@ -4,13 +4,19 @@ Counterpart of dbg_assembly_tpu/scaffold/scaffold.py.  Parity:
 link_scaffold/link_scaffold.cpp:89-463.
 Outputs: <prefix>.insert<I>.scaffold.links.all/.uniq, .scaffold.seq.fa,
 .scaffold.pos.tab, .scaffold_repeat.seq.fa/.pos.tab.
+
+Spans on the command thread: ``link_scaffold.read`` (the contigs and the
+2ctg files into the link graph), ``link_scaffold.graph`` (the low-frequency
+cut, interleaving and repeat removal, both .links files; the graph's
+counters) and ``link_scaffold.readout`` (the scaffolds' sequence and
+.pos.tab files and the repeat singlets).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .. import native
+from .. import native, spans
 from ..io.lib import read_file_list
 from .link import (LinkGraph, get_pair_id, parse_pair_map_file,
                    read_contig_file, rev_comp)
@@ -43,22 +49,41 @@ def generate_scaffold(contig_seqs, combined):
 
 def run(contig_fa: str, twoctg_lib: str, prefix: str, insert_size: int = 400,
         pair_num_cut: int = 3, is_mate: bool = False) -> dict:
-    contig_seqs, contig_ids = read_contig_file(contig_fa)
-    n = len(contig_seqs)
-    g = LinkGraph.create(n)
+    with spans.span("link_scaffold.read"):
+        contig_seqs, contig_ids = read_contig_file(contig_fa)
+        n = len(contig_seqs)
+        g = LinkGraph.create(n)
+        for path in read_file_list(twoctg_lib):
+            parse_pair_map_file(path, g, contig_seqs, insert_size, is_mate)
+        spans.add(contigs=n // 2, pairs=sum(
+            g.counters[x] for x in ("FR", "RF", "FF", "RR", "wrong")))
 
-    for path in read_file_list(twoctg_lib):
-        parse_pair_map_file(path, g, contig_seqs, insert_size, is_mate)
-
-    g.remove_lowfreq_and_stat(pair_num_cut)
     base = f"{prefix}.insert{insert_size}.scaffold"
-    g.display(base + ".links.all")
+    with spans.span("link_scaffold.graph"):
+        g.remove_lowfreq_and_stat(pair_num_cut)
+        g.display(base + ".links.all")
+        g.remove_interleaving(contig_seqs)
+        repeat_nodes = g.remove_repeat_nodes()
+        g.remove_links_from_deleted()
+        g.display(base + ".links.uniq")
+        spans.add(**g.counters)
 
-    g.remove_interleaving(contig_seqs)
-    repeat_nodes = g.remove_repeat_nodes()
-    g.remove_links_from_deleted()
-    g.display(base + ".links.uniq")
+    with spans.span("link_scaffold.readout"):
+        totals = _readout(g, contig_seqs, contig_ids, repeat_nodes, base,
+                          f"{prefix}.insert{insert_size}.scaffold_repeat")
+        spans.add(scaffolds=totals["num"], bases=totals["len"])
+    return {"seq": base + ".seq.fa", "pos": base + ".pos.tab",
+            "links_all": base + ".links.all",
+            "links_uniq": base + ".links.uniq", **totals,
+            "counters": g.counters}
 
+
+def _readout(g: LinkGraph, contig_seqs, contig_ids, repeat_nodes,
+             base: str, repeat_base: str) -> dict:
+    """The scaffolds walked from the cleaned graph, written to
+    ``base``.seq.fa / .pos.tab longest first, then the repeat singlets to
+    ``repeat_base``.seq.fa / .pos.tab; returns the scaffolds' totals."""
+    n = len(contig_seqs)
     # ------------------------------------------------------------- readout
     # (read_out_scaffold, link_scaffold.cpp:300-423)
     recs = []      # (len, seq_text, pos_text)
@@ -131,18 +156,12 @@ def run(contig_fa: str, twoctg_lib: str, prefix: str, insert_size: int = 400,
             reps.append((len(s), s, pos))
     perm = native.gcc44_sort_perm_desc(
         np.array([r[0] for r in reps], np.uint64)) if reps else []
-    with open(f"{prefix}.insert{insert_size}.scaffold_repeat.seq.fa",
-              "w") as sf, \
-            open(f"{prefix}.insert{insert_size}.scaffold_repeat.pos.tab",
-                 "w") as pf:
+    with open(repeat_base + ".seq.fa", "w") as sf, \
+            open(repeat_base + ".pos.tab", "w") as pf:
         for pi in perm:
             scaffold_id += 2
             ln, s, pos = reps[int(pi)]
             sf.write(f">scf_{scaffold_id}   fragment_num:1   length:{ln}"
                      f"   lenwogap:{ln}   RepeatNode\n" + s.decode() + "\n")
             pf.write(f">scf_{scaffold_id}\n" + pos)
-
-    return {"seq": base + ".seq.fa", "pos": base + ".pos.tab",
-            "links_all": base + ".links.all",
-            "links_uniq": base + ".links.uniq", **totals,
-            "counters": g.counters}
+    return totals

@@ -34,7 +34,12 @@ CONTIG = {"contig.ingest", "contig.parse_wait", "contig.finalize",
           "contig.readout.replay"} | DOUBLING
 CLEANING = {"lowqual.scan", "adapter.align", "lowqual.format",
             "adapter.format"}
-TABLE = IO | COUNTING | CORRECTION | CONTIG | CLEANING
+MAPPING = {"scaffold.index", "scaffold.map", "map_pair.parse",
+           "map_pair.format", "map_pair.write"}
+SCAFFOLDING = {"link_scaffold.read", "link_scaffold.graph",
+               "link_scaffold.readout"}
+TABLE = IO | COUNTING | CORRECTION | CONTIG | CLEANING | MAPPING \
+    | SCAFFOLDING
 
 
 @pytest.fixture(autouse=True)
@@ -310,6 +315,79 @@ def test_chain_spans(library, tmp_path):
                    for r in aligns)
     # every span of a command, across the seven commands
     assert len(spans.records()) < 200 and spans.dropped() == 0
+
+
+def test_scaffold_spans(library, tmp_path):
+    """map_pair and link_scaffold on contigs of the library: each span
+    once a pair of files (the map once a mate), nested in its command's
+    span, with its counts; the decode of read1 inside map_pair.parse on
+    the command thread, read2's on a helper thread; the three io.gzip
+    inside map_pair.write."""
+    d, lib, _ = library
+    prefix = str(tmp_path / "asm")
+    _run(["debruijn_contig", "-k", "31", "-r", "100", "-i", "0.01", "-M",
+          "100", "-o", prefix, lib])
+    contigs = prefix + ".contig.seq.fa"
+    mp = _run(["map_pair", "-k", "31", "-s", "5", "-l", "100", "-r", "100",
+               "-o", str(tmp_path / "map"), contigs, lib])
+    assert _names(mp) == MAPPING | {"io.parse", "io.gzip"}
+    cmd = mp[0]
+    by = {r.name: r for r in mp}
+    for name in ("scaffold.index", "map_pair.parse", "map_pair.format",
+                 "map_pair.write"):
+        assert [r.name for r in mp].count(name) == 1, name
+        assert by[name].parent == cmd.index and by[name].thread == cmd.thread
+    with open(lib) as f:
+        files = f.read().split()
+    n = 1800
+    assert by["map_pair.parse"].counts == {
+        "bytes": sum(os.path.getsize(p) for p in files), "reads": 2 * n}
+    parses = [r for r in mp if r.name == "io.parse"]
+    assert len(parses) == 2
+    mine = [r for r in parses if r.thread == cmd.thread]
+    assert [r.parent for r in mine] == [by["map_pair.parse"].index]
+    [helper] = [r for r in parses if r.thread != cmd.thread]
+    assert helper.parent == cmd.index
+    assert by["map_pair.parse"].start <= helper.start <= helper.end \
+        <= by["map_pair.parse"].end
+    ix = by["scaffold.index"].counts
+    assert ix["contigs"] > 0 and ix["windows"] >= ix["kmers"] \
+        >= ix["unique"] > 0
+    maps = [r for r in mp if r.name == "scaffold.map"]
+    assert len(maps) == 2 and all(
+        r.counts["reads"] == n and r.counts["chunks"] == 1
+        and 0 < r.counts["mapped"] <= n and r.thread == cmd.thread
+        for r in maps)
+    fmt = by["map_pair.format"].counts
+    assert fmt["pairs"] == n == sum(fmt[x] for x in ("diff", "same", "gap",
+                                                     "none"))
+    assert fmt["diff"] > 0 and fmt["same"] > 0
+    gz = [r for r in mp if r.name == "io.gzip"]
+    assert len(gz) == 3 and all(r.parent == by["map_pair.write"].index
+                                for r in gz)
+
+    twoctg = tmp_path / "twoctg.lib"
+    twoctg.write_text(str(tmp_path / "map" / os.path.basename(files[0]))
+                      + ".map_pair.2ctg.gz\n")
+    ls = _run(["link_scaffold", "-i", "300", "-o", str(tmp_path / "scf"),
+               contigs, str(twoctg)])
+    assert [r.name for r in ls[1:]] == ["link_scaffold.read",
+                                        "link_scaffold.graph",
+                                        "link_scaffold.readout"]
+    read, graph, readout = ls[1:]
+    assert all(r.parent == ls[0].index for r in ls[1:])
+    with open(contigs) as f:
+        assert read.counts == {"contigs": f.read().count(">"),
+                               "pairs": fmt["diff"]}
+    assert set(graph.counts) == {"FR", "RF", "FF", "RR", "wrong", "lowfreq",
+                                 "deleted", "interleave"}
+    assert sum(graph.counts[x] for x in ("FR", "RF", "FF", "RR",
+                                         "wrong")) == fmt["diff"]
+    with open(str(tmp_path / "scf") + ".insert300.scaffold.seq.fa") as f:
+        fa = f.read().split("\n")
+    assert readout.counts == {
+        "scaffolds": sum(x.startswith(">") for x in fa),
+        "bases": sum(len(x) for x in fa if x and not x.startswith(">"))}
 
 
 def test_fallback_span(library, monkeypatch):
